@@ -1,0 +1,211 @@
+"""The PyTorch port's attention kernels against the JAX package's.
+
+On the CPU the port runs its kernels' plain versions (``kernels/ref.py``);
+those are held against the Pallas kernels (interpret mode) and the JAX
+oracles in ``repro.kernels.ref``, on the sweeps of
+``tests/test_kernels.py``. Inputs come from numpy with a seed. Tolerance: 2e-5 in fp32 — the two sides sum
+in different orders. ``test_torch_cuda.py`` holds the hand-written
+kernels against the plain versions on the card.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ref as jref
+from repro.kernels.flash_attention import flash_attention_pallas
+from repro.kernels.paged_attention import paged_decode_attention_pallas
+from repro_torch.kernels import ops as tops
+from repro_torch.kernels import ref as tref
+from repro_torch.kernels.flash_attention import flash_attention_cuda
+from repro_torch.kernels.paged_attention import paged_decode_attention_cuda
+from repro_torch.models import runtime
+
+ATOL = 2e-5
+
+
+def _randn(rng, *shape):
+    return rng.standard_normal(shape).astype(np.float32)
+
+
+def _close(out_torch, out_jax, atol=ATOL):
+    np.testing.assert_allclose(out_torch.detach().numpy(), np.asarray(out_jax),
+                               atol=atol, rtol=0)
+
+
+# ---------------------------------------------------------------------------
+# flash attention (prefill)
+# ---------------------------------------------------------------------------
+
+
+def _flash_inputs(seed, b, hq, hkv, s, d):
+    rng = np.random.default_rng(seed)
+    return (_randn(rng, b, hq, s, d), _randn(rng, b, hkv, s, d),
+            _randn(rng, b, hkv, s, d))
+
+
+@pytest.mark.parametrize("b,hq,hkv,s,d", [
+    (2, 4, 2, 64, 32),
+    (1, 4, 4, 96, 64),
+    (2, 8, 1, 33, 16),     # ragged seq, G = 8
+    (1, 2, 2, 128, 128),
+    (1, 2, 1, 40, 96),     # phi3's head_dim, G = 2
+])
+def test_flash_plain_matches_pallas_and_ref(b, hq, hkv, s, d):
+    q, k, v = _flash_inputs(0, b, hq, hkv, s, d)
+    scale = d ** -0.5
+    out = tref.flash_attention_ref(*map(torch.from_numpy, (q, k, v)),
+                                   scale=scale)
+    pallas = flash_attention_pallas(*map(jnp.asarray, (q, k, v)), scale=scale,
+                                    block_q=32, block_k=32)
+    oracle = jref.flash_attention_ref(*map(jnp.asarray, (q, k, v)),
+                                      scale=scale)
+    _close(out, pallas)
+    _close(out, oracle)
+
+
+@pytest.mark.parametrize("window,cap,causal", [
+    (None, None, True),
+    (32, None, True),
+    (None, 30.0, True),
+    (16, 50.0, True),
+    (None, None, False),
+])
+def test_flash_plain_flags_match_pallas(window, cap, causal):
+    q, k, v = _flash_inputs(1, 2, 4, 2, 80, 32)
+    kw = dict(scale=0.2, causal=causal, window=window, logit_cap=cap)
+    out = tref.flash_attention_ref(*map(torch.from_numpy, (q, k, v)), **kw)
+    pallas = flash_attention_pallas(*map(jnp.asarray, (q, k, v)),
+                                    block_q=16, block_k=16, **kw)
+    _close(out, pallas)
+    _close(out, jref.flash_attention_ref(*map(jnp.asarray, (q, k, v)), **kw))
+
+
+def test_flash_gemma2_head_dim_window_and_cap():
+    """head_dim 256, G = 2, a window shorter than the sequence, cap 50."""
+    q, k, v = _flash_inputs(2, 1, 4, 2, 48, 256)
+    kw = dict(scale=256 ** -0.5, window=20, logit_cap=50.0)
+    out = tref.flash_attention_ref(*map(torch.from_numpy, (q, k, v)), **kw)
+    _close(out, flash_attention_pallas(*map(jnp.asarray, (q, k, v)),
+                                       block_q=16, block_k=16, **kw))
+
+
+def test_flash_model_layout_wrapper_matches_jax_ops():
+    """``ops.flash_attention`` takes (B,S,H,D) like ``repro.kernels.ops``;
+    on the CPU it runs the plain version and launches nothing."""
+    from repro.kernels import ops as jops
+    rng = np.random.default_rng(3)
+    q, k, v = (_randn(rng, 2, 33, 4, 16), _randn(rng, 2, 33, 2, 16),
+               _randn(rng, 2, 33, 2, 16))
+    before = flash_attention_cuda.launches
+    out = tops.flash_attention(*map(torch.from_numpy, (q, k, v)), scale=0.25,
+                               window=8, logit_cap=30.0)
+    assert flash_attention_cuda.launches == before
+    assert out.shape == (2, 33, 4, 16)
+    _close(out, jops.flash_attention(*map(jnp.asarray, (q, k, v)), scale=0.25,
+                                     window=8, logit_cap=30.0))
+
+
+# ---------------------------------------------------------------------------
+# paged decode attention
+# ---------------------------------------------------------------------------
+
+
+def _paged_inputs(seed, b, hq, hkv, d, page, n_pool):
+    rng = np.random.default_rng(seed)
+    return (_randn(rng, b, hq, d), _randn(rng, n_pool, b, page, hkv, d),
+            _randn(rng, n_pool, b, page, hkv, d), _randn(rng, b, page, hkv, d),
+            _randn(rng, b, page, hkv, d))
+
+
+def _paged_both(arrays, table, tail_len, **kw):
+    q, kp, vp, kt, vt = arrays
+    t_args = (torch.from_numpy(q), torch.from_numpy(kp), torch.from_numpy(vp),
+              torch.tensor(table, dtype=torch.int32), torch.from_numpy(kt),
+              torch.from_numpy(vt), tail_len)
+    j_args = (jnp.asarray(q), jnp.asarray(kp), jnp.asarray(vp),
+              jnp.asarray(table, jnp.int32), jnp.asarray(kt), jnp.asarray(vt),
+              jnp.int32(tail_len))
+    out = tref.paged_decode_attention_ref(*t_args, **kw)
+    return (out, paged_decode_attention_pallas(*j_args, **kw),
+            jref.paged_decode_attention_ref(*j_args, **kw))
+
+
+@pytest.mark.parametrize("hq,hkv", [(2, 2), (8, 2), (4, 1)])   # GQA groups
+@pytest.mark.parametrize("cap", [None, 30.0])
+def test_paged_plain_gqa_and_softcap_match_pallas(hq, hkv, cap):
+    arrays = _paged_inputs(10, 2, hq, hkv, 32, 8, 5)
+    out, pallas, oracle = _paged_both(arrays, (3, 0, 4), 5,
+                                      scale=32 ** -0.5, logit_cap=cap)
+    _close(out, pallas)
+    _close(out, oracle)
+
+
+@pytest.mark.parametrize("table,tail_len", [
+    ((0, 1, 2, 3, 4), 5),   # all pages, partial tail
+    ((2, 4), 0),            # tail empty
+    ((1, 3), 8),            # tail exactly full
+    ((), 3),                # tail-only attention (no pages yet)
+    ((), 1),                # single-token tail
+])
+def test_paged_plain_tail_boundaries_match_pallas(table, tail_len):
+    arrays = _paged_inputs(11, 2, 4, 2, 32, 8, 5)
+    out, pallas, oracle = _paged_both(arrays, table, tail_len,
+                                      scale=32 ** -0.5)
+    _close(out, pallas)
+    _close(out, oracle)
+
+
+def test_paged_empty_table_and_empty_tail_is_mean_of_v_tail():
+    """With the finite NEG_INF every score is equally masked, so the
+    softmax is uniform: both JAX versions and the port return the mean of
+    v_tail, not NaN."""
+    arrays = _paged_inputs(12, 2, 4, 2, 32, 8, 3)
+    out, pallas, oracle = _paged_both(arrays, (), 0, scale=32 ** -0.5)
+    v_tail = arrays[4]                               # (B, page, Hkv, D)
+    mean = np.repeat(v_tail.mean(axis=1), 2, axis=1)  # (B, Hq, D), G = 2
+    assert np.isfinite(out.numpy()).all()
+    np.testing.assert_allclose(out.numpy(), mean, atol=ATOL)
+    _close(out, pallas)
+    _close(out, oracle)
+
+
+def test_paged_plain_ref_is_bitwise_the_gather_path():
+    """The plain paged version IS the gather/concat math of the cache's
+    ``attend`` — the identity that makes the fused path token-identical."""
+    q, kp, vp, kt, vt = map(torch.from_numpy, _paged_inputs(13, 2, 4, 2, 32,
+                                                            8, 6))
+    for table, tl in [((5, 1, 2), 4), ((0,), 0), ((), 7)]:
+        t = torch.tensor(table, dtype=torch.int32)
+        ref = tref.paged_decode_attention_ref(q, kp, vp, t, kt, vt, tl,
+                                              scale=32 ** -0.5)
+        idx = t.long()
+        gather = tref.paged_attend_gathered(q, kp[idx], vp[idx], kt, vt, tl,
+                                            scale=32 ** -0.5)
+        assert torch.equal(ref, gather)
+
+
+# ---------------------------------------------------------------------------
+# dispatch: CPU tensors take the plain version, CUDA entry points refuse them
+# ---------------------------------------------------------------------------
+
+
+def test_cpu_tensors_take_the_plain_path_and_kernels_refuse_them():
+    assert runtime.attention_impl(torch.device("cpu")) == "plain"
+    with runtime.use_attention_impl("kernel"):
+        assert runtime.attention_impl(torch.device("cpu")) == "plain"
+    with pytest.raises(ValueError):
+        with runtime.use_attention_impl("pallas"):
+            pass
+    q = torch.zeros(1, 2, 8, 16)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        flash_attention_cuda(q, q, q, scale=1.0)
+    qd, pages, tail = torch.zeros(1, 2, 16), torch.zeros(1, 1, 4, 2, 16), \
+        torch.zeros(1, 4, 2, 16)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        paged_decode_attention_cuda(qd, pages, pages,
+                                    torch.zeros(1, dtype=torch.int32),
+                                    tail, tail, 1, scale=1.0)
+    counts = tops.launch_counts()
+    assert set(counts) == {"flash_attention", "paged_decode_attention"}

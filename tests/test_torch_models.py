@@ -1,0 +1,181 @@
+"""The PyTorch port's model against the JAX package's, at smoke size.
+
+The JAX model's parameters are carried across with ``params_from_numpy``
+(the port keeps the stacked per-segment layout), inputs come from numpy
+with a seed, and the JAX side runs its ``"xla"`` path. Tolerance: 1e-4 in
+fp32 — the two frameworks order their matmul sums differently.
+"""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import REGISTRY as JAX_REGISTRY
+from repro.configs.base import LayerSpec as JaxLayerSpec
+from repro.configs.base import Segment as JaxSegment
+from repro.models.model import build_model as jax_build_model
+from repro_torch.configs import REGISTRY as TORCH_REGISTRY
+from repro_torch.configs.base import LayerSpec as TorchLayerSpec
+from repro_torch.configs.base import Segment as TorchSegment
+from repro_torch.convert import params_from_numpy
+from repro_torch.models.model import build_model as torch_build_model
+
+ATOL = 1e-4
+CPU = torch.device("cpu")
+
+
+def _windowed(cfg, layer_spec, segment, window):
+    """gemma2's local/global pattern with a window shorter than the test
+    sequences, so the ring caches wrap."""
+    local = layer_spec(mixer="attn", ffn="swiglu", window=window,
+                       post_norms=True)
+    glob = layer_spec(mixer="attn", ffn="swiglu", post_norms=True)
+    return dataclasses.replace(
+        cfg, segments=(segment(pattern=(local, glob), repeats=2),))
+
+
+def _configs(name):
+    """(JAX config, port config) built the same way from each package."""
+    if name == "gemma2-windowed":
+        return (_windowed(JAX_REGISTRY["gemma2-9b"].reduced(), JaxLayerSpec,
+                          JaxSegment, 6),
+                _windowed(TORCH_REGISTRY["gemma2-9b"].reduced(),
+                          TorchLayerSpec, TorchSegment, 6))
+    arch, kv = {"phi3": ("phi3-mini-3.8b", None),
+                "gemma2": ("gemma2-9b", None),
+                "phi3-gqa": ("phi3-mini-3.8b", 2)}[name]
+    jc, tc = JAX_REGISTRY[arch].reduced(), TORCH_REGISTRY[arch].reduced()
+    if kv is not None:
+        jc = dataclasses.replace(jc, n_kv_heads=kv)
+        tc = dataclasses.replace(tc, n_kv_heads=kv)
+    return jc, tc
+
+
+CONFIGS = ["phi3", "gemma2", "phi3-gqa", "gemma2-windowed"]
+
+
+def _pair(name, seed=0):
+    jc, tc = _configs(name)
+    assert dataclasses.asdict(jc) == dataclasses.asdict(tc)
+    jm, tm = jax_build_model(jc), torch_build_model(tc)
+    jp = jm.init(jax.random.key(seed))
+    tp = params_from_numpy(jax.tree.map(np.asarray, jp), CPU)
+    return jm, jp, tm, tp
+
+
+def _tokens(cfg, b, s, seed):
+    return np.random.default_rng(seed).integers(0, cfg.vocab_size, (b, s),
+                                                dtype=np.int32)
+
+
+def _close(t, j, atol=ATOL):
+    np.testing.assert_allclose(t.detach().numpy(), np.asarray(j), atol=atol,
+                               rtol=0)
+
+
+def _close_cache(tcache, jcache):
+    t_leaves = jax.tree.leaves(jax.tree.map(np.asarray, jcache))
+    flat = []
+
+    def walk(node):
+        if isinstance(node, dict):
+            for k in sorted(node):
+                walk(node[k])
+        elif isinstance(node, list):
+            for x in node:
+                walk(x)
+        else:
+            flat.append(node)
+
+    walk(tcache)
+    assert len(flat) == len(t_leaves)
+    for t, j in zip(flat, t_leaves):
+        assert tuple(t.shape) == j.shape
+        _close(t, j)
+
+
+def test_convert_copies_and_reads_bfloat16_bits():
+    jm, _, _, _ = _pair("phi3")
+    jp = jm.init(jax.random.key(1), jnp.bfloat16)
+    tree = jax.tree.map(np.asarray, jp)
+    tp = params_from_numpy(tree, CPU)
+    wq = tp["segments"][0]["p0"]["mixer"]["wq"]
+    assert wq.dtype == torch.bfloat16
+    ref = np.asarray(jp["segments"][0]["p0"]["mixer"]["wq"]).astype(np.float32)
+    np.testing.assert_array_equal(wq.float().numpy(), ref)
+    # a copy: writing the tensor leaves the source array alone
+    wq.zero_()
+    assert np.any(tree["segments"][0]["p0"]["mixer"]["wq"] != 0)
+    # norm scales stay fp32, as the reference keeps them
+    assert tp["final_norm"]["scale"].dtype == torch.float32
+    as32 = params_from_numpy(tree, CPU, dtype=torch.float32)
+    assert as32["embed"].dtype == torch.float32
+
+
+@pytest.mark.parametrize("name", CONFIGS)
+def test_forward_matches_jax(name):
+    jm, jp, tm, tp = _pair(name)
+    toks = _tokens(tm.cfg, 2, 12, seed=1)
+    jl, _ = jm.forward(jp, {"tokens": jnp.asarray(toks)})
+    tl, _ = tm.forward(tp, {"tokens": torch.from_numpy(toks)})
+    assert tl.shape == (2, 12, tm.cfg.padded_vocab)
+    _close(tl, jl)
+
+
+@pytest.mark.parametrize("name", CONFIGS)
+def test_prefill_and_decode_match_jax(name):
+    """Prefill, then decode at a scalar pos and at per-row (B,) pos; the
+    logits and every cache leaf agree after each step."""
+    jm, jp, tm, tp = _pair(name)
+    b, s, max_seq = 2, 10, 16
+    toks = _tokens(tm.cfg, b, s, seed=2)
+    jcache = jm.init_cache(b, max_seq)
+    tcache = tm.init_cache(b, max_seq, device=CPU)
+    jl, jcache = jm.prefill(jp, {"tokens": jnp.asarray(toks)}, jcache)
+    tl, tcache = tm.prefill(tp, {"tokens": torch.from_numpy(toks)}, tcache)
+    _close(tl, jl)
+    _close_cache(tcache, jcache)
+
+    nxt = _tokens(tm.cfg, b, 1, seed=3)
+    jl, jcache = jm.decode_step(jp, jcache, jnp.asarray(nxt), jnp.int32(s))
+    tl, tcache = tm.decode_step(tp, tcache, torch.from_numpy(nxt), s)
+    _close(tl, jl)
+    _close_cache(tcache, jcache)
+
+    # continuous batching: each row writes its own index
+    pos = np.array([s + 1, s - 3], np.int32)
+    nxt = _tokens(tm.cfg, b, 1, seed=4)
+    jl, jcache = jm.decode_step(jp, jcache, jnp.asarray(nxt), jnp.asarray(pos))
+    tl, tcache = tm.decode_step(tp, tcache, torch.from_numpy(nxt),
+                                torch.from_numpy(pos))
+    _close(tl, jl)
+    _close_cache(tcache, jcache)
+
+
+@pytest.mark.parametrize("name", CONFIGS)
+def test_greedy_tokens_match_jax(name):
+    """16 greedy steps pick the same tokens. Each step's top-2 logit margin
+    must exceed 1e-3, so a near-tie fails loudly instead of flaking."""
+    jm, jp, tm, tp = _pair(name)
+    b, s, steps = 2, 8, 16
+    toks = _tokens(tm.cfg, b, s, seed=5)
+    jcache = jm.init_cache(b, s + steps)
+    tcache = tm.init_cache(b, s + steps, device=CPU)
+    jl, jcache = jm.prefill(jp, {"tokens": jnp.asarray(toks)}, jcache)
+    tl, tcache = tm.prefill(tp, {"tokens": torch.from_numpy(toks)}, tcache)
+    jdecode = jax.jit(jm.decode_step)
+    for i in range(steps):
+        top2 = torch.topk(tl[:, 0], 2, dim=-1).values
+        assert float((top2[:, 0] - top2[:, 1]).min()) > 1e-3, f"near-tie at {i}"
+        jt = np.asarray(jnp.argmax(jl[:, 0], axis=-1)).astype(np.int32)
+        tt = torch.argmax(tl[:, 0], dim=-1).to(torch.int32)
+        np.testing.assert_array_equal(tt.numpy(), jt)
+        if i == steps - 1:
+            break
+        jl, jcache = jdecode(jp, jcache, jnp.asarray(jt)[:, None],
+                             jnp.int32(s + i))
+        tl, tcache = tm.decode_step(tp, tcache, tt[:, None], s + i)
