@@ -36,7 +36,10 @@ def tensor_from_numpy(a: np.ndarray, device: torch.device,
 def params_from_numpy(tree: Any, device: DeviceLike = None,
                       dtype: Optional[torch.dtype] = None) -> Any:
     """Nested dicts/lists/tuples of numpy arrays → the same nesting of
-    tensors on ``device`` (default CUDA)."""
+    tensors on ``device`` (default CUDA). ``dtype`` casts every floating
+    leaf, including those the reference keeps in fp32 whatever the model's
+    type (norm scales; Mamba2's ``A_log``, ``D``, ``dt_bias`` and
+    ``gate_norm``): leave it ``None`` to keep the reference's types."""
     dev = resolve_device(device)
 
     def conv(node: Any) -> Any:

@@ -21,12 +21,19 @@ import time
 from pathlib import Path
 from typing import Dict, List, Optional
 
+import torch
+
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("flash_attention.cu", "paged_attention.cu")
+SOURCES = ("flash_attention.cu", "paged_attention.cu", "ssd_scan.cu")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = ("-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
               *ARCH_FLAGS)
+
+#: the element types the kernels take, by the code their C entry points read
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+#: shared memory a block may use on Hopper (bytes)
+MAX_SMEM_BYTES = 232448
 
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _SIGNATURES = {
@@ -36,6 +43,11 @@ _SIGNATURES = {
         [_P, _P, _P, _P, _I, _I, _P, _P, _I, _P, _I] + [_I] * 5 + [_F, _F, _P],
         _I),
     "paged_decode_attention_smem_bytes": ([_I, _I, _I], ctypes.c_size_t),
+    "decode_attention_fwd": (
+        [_P, _P, _P, _P, _I, _LL] + [_I] * 5 + [_LL] * 4 + [_F, _F, _P], _I),
+    "decode_attention_smem_bytes": ([_I, _I], ctypes.c_size_t),
+    "ssd_scan_fwd": ([_P] * 6 + [_I] * 7 + [_LL] * 12 + [_P], _I),
+    "ssd_scan_smem_bytes": ([_I] * 5, ctypes.c_size_t),
     "hyperoffload_cuda_error_string": ([_I], ctypes.c_char_p),
 }
 

@@ -1,6 +1,13 @@
 """Public kernel wrappers in model layout (the counterpart of
 ``repro.kernels.ops``), and the kernels' launch counts.
 
+- :func:`flash_attention`: causal prefill attention, q (B,S,Hq,D) over k/v
+  (B,T,Hkv,D);
+- :func:`decode_attention`: one query per row over a ring cache, q
+  (B,1,Hq,D) over k/v (B,C,Hkv,D) at a scalar ``pos``;
+- :func:`ssd_scan`: the Mamba2 SSD chunked scan, returning y and the final
+  state.
+
 A wrapper runs its plain PyTorch version when the tensors lie on the CPU
 and launches the Hopper kernel when they lie on a CUDA device; there is no
 fallback from the kernel to the plain version. The kernel-launching
@@ -12,18 +19,29 @@ the paged cache's own layout, and ``PagedKVCache.attend_fused`` calls
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple, Union
 
 import torch
 
 from repro_torch.kernels.flash_attention import flash_attention_cuda
-from repro_torch.kernels.paged_attention import paged_decode_attention_cuda
-from repro_torch.kernels.ref import flash_attention_ref
+from repro_torch.kernels.paged_attention import (
+    decode_attention_cuda,
+    paged_decode_attention_cuda,
+)
+from repro_torch.kernels.ref import (
+    decode_attention_ref,
+    flash_attention_ref,
+    ssd_scan_ref,
+)
+from repro_torch.kernels.ssd_scan import ssd_scan_cuda
 
-__all__ = ["flash_attention", "launch_counts", "reset_launch_counts"]
+__all__ = ["flash_attention", "decode_attention", "ssd_scan",
+           "launch_counts", "reset_launch_counts"]
 
 _COUNTED = {"flash_attention": flash_attention_cuda,
-            "paged_decode_attention": paged_decode_attention_cuda}
+            "paged_decode_attention": paged_decode_attention_cuda,
+            "decode_attention": decode_attention_cuda,
+            "ssd_scan": ssd_scan_cuda}
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -43,6 +61,33 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          window=window, logit_cap=logit_cap,
                          out=out.transpose(1, 2))
     return out
+
+
+def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     pos: Union[int, torch.Tensor], *, scale: float,
+                     logit_cap: Optional[float] = None) -> torch.Tensor:
+    """Ring-cache decode attention: q (B,1,Hq,D), cache (B,C,Hkv,D) →
+    (B,1,Hq,D). ``pos`` is the token index just written, one for every
+    row. On CUDA the kernel reads the cache in place through its strides."""
+    q3 = q[:, 0]
+    if q.device.type == "cpu":
+        out = decode_attention_ref(q3, k.transpose(1, 2), v.transpose(1, 2),
+                                   pos, scale=scale, logit_cap=logit_cap)
+    else:
+        out = decode_attention_cuda(q3, k, v, pos, scale=scale,
+                                    logit_cap=logit_cap)
+    return out[:, None]
+
+
+def ssd_scan(x: torch.Tensor, a: torch.Tensor, b_mat: torch.Tensor,
+             c_mat: torch.Tensor, chunk: int
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Mamba2 SSD chunked scan in model layout: x (B,S,H,P), a (B,S,H),
+    B/C (B,S,H,N), ``S % chunk == 0`` → (y (B,S,H,P), final state
+    (B,H,P,N)), both fp32."""
+    if x.device.type == "cpu":
+        return ssd_scan_ref(x, a, b_mat, c_mat, chunk)
+    return ssd_scan_cuda(x, a, b_mat, c_mat, chunk)
 
 
 def launch_counts() -> Dict[str, int]:

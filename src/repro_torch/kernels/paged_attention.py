@@ -1,25 +1,30 @@
-"""Paged decode attention: the wrapper of the Hopper kernel in
-``csrc/paged_attention.cu``, which replaces the JAX package's Pallas kernel
-``repro.kernels.paged_attention.paged_decode_attention_pallas``.
+"""Decode attention: the wrappers of the two Hopper kernels in
+``csrc/paged_attention.cu``, which replace the JAX package's Pallas kernels
+of ``repro.kernels.paged_attention``.
 
-The page table is a device int32 tensor that the kernel reads itself, so one
-compiled kernel serves every table length (the reference retraces per
-length). :func:`paged_decode_attention_cuda` takes CUDA tensors only;
-``PagedKVCache.attend_fused`` calls it on a CUDA device and the plain
-version (``ref.paged_decode_attention_ref``) on the CPU.
+- :func:`paged_decode_attention_cuda` replaces
+  ``paged_decode_attention_pallas``: one query over pool pages plus the
+  device tail. The page table is a device int32 tensor that the kernel
+  reads itself, so one compiled kernel serves every table length (the
+  reference retraces per length). ``PagedKVCache.attend_fused`` calls it on
+  a CUDA device and the plain version (``ref.paged_decode_attention_ref``)
+  on the CPU.
+- :func:`decode_attention_cuda` replaces ``decode_attention_pallas``: one
+  query over a ring cache, read in the model's (B,C,Hkv,D) layout through
+  its strides, at a host-scalar ``pos``. ``ops.decode_attention`` calls it
+  on a CUDA device and ``ref.decode_attention_ref`` on the CPU.
+
+Both take CUDA tensors only.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Union
 
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.flash_attention import DTYPE_CODES
-
-#: shared memory a block may use on Hopper (bytes)
-MAX_SMEM_BYTES = 232448
+from repro_torch.kernels.build import DTYPE_CODES, MAX_SMEM_BYTES
 
 
 def paged_decode_attention_cuda(q: torch.Tensor, k_pages: torch.Tensor,
@@ -90,3 +95,64 @@ def paged_decode_attention_cuda(q: torch.Tensor, k_pages: torch.Tensor,
 
 #: launches of the kernel in this process (set to 0 to start a count)
 paged_decode_attention_cuda.launches = 0
+
+
+def decode_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          pos: Union[int, torch.Tensor], *, scale: float,
+                          logit_cap: Optional[float] = None) -> torch.Tensor:
+    """q (B,Hq,D) with contiguous heads, ring caches k/v (B,C,Hkv,D) with a
+    unit head-dim stride (any other strides, the same for k and v), ``pos``
+    the token index just written (an int, or a 0-dim tensor read on the
+    host) → (B,Hq,D)."""
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.device.type != "cuda" or t.device != q.device:
+            raise ValueError(f"{name} must be a CUDA tensor on {q.device}, "
+                             f"got {t.device}")
+        if t.dtype not in DTYPE_CODES or t.dtype != q.dtype:
+            raise TypeError(f"{name}: dtype {t.dtype}; the kernel takes "
+                            "float32 or bfloat16, the same for q, k, v")
+    if q.dim() != 3 or k.dim() != 4:
+        raise ValueError(f"q must be (B,Hq,D) and k/v (B,C,Hkv,D), got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}")
+    b, hq, d = q.shape
+    c, hkv = k.shape[1], k.shape[2]
+    if k.shape != v.shape or k.shape[0] != b or k.shape[3] != d:
+        raise ValueError(f"shape mismatch: q {tuple(q.shape)}, "
+                         f"k {tuple(k.shape)}, v {tuple(v.shape)}")
+    if q.stride(2) != 1 or q.stride(1) != d or k.stride(3) != 1 \
+            or k.stride() != v.stride():
+        raise ValueError("q's heads and the head dims must be contiguous, "
+                         f"and k and v strided alike (strides q {q.stride()}"
+                         f", k {k.stride()}, v {v.stride()})")
+    if hkv == 0 or hq % hkv:
+        raise ValueError(f"Hq={hq} is not a multiple of Hkv={hkv}")
+    if c == 0:
+        raise ValueError("the ring cache has no slots")
+    if isinstance(pos, torch.Tensor):
+        if pos.dim() != 0:
+            raise ValueError("pos must be a scalar (one index for every row)")
+        pos = int(pos)
+    if logit_cap is not None and logit_cap <= 0:
+        raise ValueError(f"logit_cap must be > 0 or None, got {logit_cap}")
+    lib = build.load_library()
+    smem = lib.decode_attention_smem_bytes(hq // hkv, d)
+    if smem > MAX_SMEM_BYTES:
+        raise ValueError(f"G={hq // hkv}, D={d} need {smem} B of shared "
+                         f"memory, more than {MAX_SMEM_BYTES}")
+    out = torch.empty((b, hq, d), dtype=q.dtype, device=q.device)
+    if b == 0 or d == 0:
+        return out
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.decode_attention_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            DTYPE_CODES[q.dtype], int(pos), b, hq, hkv, c, d, q.stride(0),
+            *k.stride()[:3], float(scale),
+            0.0 if logit_cap is None else float(logit_cap), stream)
+    build.check(err, "decode_attention_fwd")
+    decode_attention_cuda.launches += 1
+    return out
+
+
+#: launches of the kernel in this process (set to 0 to start a count)
+decode_attention_cuda.launches = 0

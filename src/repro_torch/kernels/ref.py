@@ -1,16 +1,18 @@
-"""Plain PyTorch versions of the attention kernels.
+"""Plain PyTorch versions of the kernels.
 
 These compute the same functions as the hand-written CUDA kernels beside
 them (``csrc/``), with the same arithmetic as the JAX reference's oracles
-(``repro.kernels.ref``): scores in fp32, masking with the finite ``NEG_INF``
-(never ``-inf``: rows that start fully masked would turn into NaN), one
-softmax, output in q's type. The CPU tests hold them against the JAX
-package; on the card they are the yardstick each kernel is checked against.
+(``repro.kernels.ref``). Attention: scores in fp32, masking with the finite
+``NEG_INF`` (never ``-inf``: rows that start fully masked would turn into
+NaN), one softmax, output in q's type. The SSD scan delegates to the
+model's chunked algorithm, as the reference's oracle does. The CPU tests
+hold them against the JAX package; on the card they are the yardstick each
+kernel is checked against.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Union
+from typing import Optional, Tuple, Union
 
 import torch
 
@@ -48,6 +50,31 @@ def flash_attention_ref(
     p = torch.softmax(sc, dim=-1)
     out = torch.einsum("bkgst,bktd->bkgsd", p, v.float())
     return out.reshape(b, hq, s, d).to(q.dtype)
+
+
+def decode_attention_ref(
+    q: torch.Tensor,       # (B, Hq, D) — one token per sequence
+    k: torch.Tensor,       # (B, Hkv, C, D) ring cache
+    v: torch.Tensor,       # (B, Hkv, C, D)
+    pos: Union[int, torch.Tensor],   # scalar — token index just written
+    *,
+    scale: float,
+    logit_cap: Optional[float] = None,
+) -> torch.Tensor:
+    """Attention of one query over a ring-buffer cache: slot j holds token
+    t_j = pos - ((pos - j) mod C); valid iff t_j >= 0."""
+    b, hq, d = q.shape
+    hkv, c = k.shape[1], k.shape[2]
+    g = hq // hkv
+    qf = q.float().reshape(b, hkv, g, d) * scale
+    sc = torch.einsum("bkgd,bkcd->bkgc", qf, k.float())
+    sc = _softcap(sc, logit_cap)
+    j = torch.arange(c, device=q.device)
+    tj = pos - torch.remainder(pos - j, c)
+    sc = torch.where(tj >= 0, sc, NEG_INF)
+    p = torch.softmax(sc, dim=-1)
+    out = torch.einsum("bkgc,bkcd->bkgd", p, v.float())
+    return out.reshape(b, hq, d).to(q.dtype)
 
 
 def paged_attend_gathered(
@@ -106,3 +133,16 @@ def paged_decode_attention_ref(
     return paged_attend_gathered(q, k_pages[idx], v_pages[idx], k_tail,
                                  v_tail, tail_len, scale=scale,
                                  logit_cap=logit_cap)
+
+
+def ssd_scan_ref(
+    x: torch.Tensor,       # (B, S, H, P) pre-scaled by dt
+    a: torch.Tensor,       # (B, S, H) = dt * A (negative)
+    b_mat: torch.Tensor,   # (B, S, H, N)
+    c_mat: torch.Tensor,   # (B, S, H, N)
+    chunk: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Chunked SSD: (y (B,S,H,P), final state (B,H,P,N)), both fp32.
+    Delegates to the model's :func:`~repro_torch.models.ssm.ssd_chunked`."""
+    from repro_torch.models.ssm import ssd_chunked
+    return ssd_chunked(x, a, b_mat, c_mat, chunk)

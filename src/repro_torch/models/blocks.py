@@ -1,7 +1,7 @@
-"""Layer (block) application: pre-norm residual structure over an attention
-mixer and an FFN, with gemma2-style optional post-sublayer norms. One code
-path per execution mode (forward, prefill, decode) so caches stay
-explicit."""
+"""Layer (block) application: pre-norm residual structure over a mixer
+(GQA attention or Mamba2) and an FFN, with gemma2-style optional
+post-sublayer norms. One code path per execution mode (forward, prefill,
+decode) so caches stay explicit."""
 
 from __future__ import annotations
 
@@ -12,12 +12,15 @@ import torch
 from repro_torch.configs.base import LayerSpec, ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import mlp as mlp_mod
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.common import apply_norm, norm_params
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """This slice of the port runs dense decoders with GQA attention; MoE,
-    MLA, SSM, encoders and vision frontends come in later slices."""
+    """The port runs decoders whose layers are GQA attention with a SwiGLU
+    or GELU FFN (or none), or Mamba2 with no FFN (mamba2, the zamba2
+    hybrid); MoE, MLA, cross-attention, encoders and vision frontends come
+    in later slices."""
     bad = []
     if cfg.encoder is not None or cfg.frontend != "none":
         bad.append("encoder/frontend")
@@ -25,6 +28,10 @@ def check_supported(cfg: ModelConfig) -> None:
         bad.append(f"rope_mode={cfg.rope_mode}")
     for seg in cfg.segments:
         for spec in seg.pattern:
+            if spec.mixer == "mamba2":
+                if spec.ffn != "none":
+                    bad.append(f"mixer=mamba2 ffn={spec.ffn}")
+                continue
             if spec.mixer != "attn" or spec.cross_attn:
                 bad.append(f"mixer={spec.mixer} cross_attn={spec.cross_attn}")
             if spec.ffn not in ("swiglu", "gelu", "none"):
@@ -42,9 +49,12 @@ def check_supported(cfg: ModelConfig) -> None:
 def init_layer_params(cfg: ModelConfig, spec: LayerSpec, dtype: torch.dtype,
                       device: torch.device, generator: torch.Generator,
                       stack: Sequence[int] = ()) -> Dict:
-    p: Dict = {"pre_norm": norm_params(cfg, device, stack),
-               "mixer": attn.init_attn_params(cfg, spec, dtype, device,
-                                              generator, stack)}
+    if spec.mixer == "mamba2":
+        mixer = ssm_mod.init_mamba_params(cfg, dtype, device, generator, stack)
+    else:
+        mixer = attn.init_attn_params(cfg, spec, dtype, device, generator,
+                                      stack)
+    p: Dict = {"pre_norm": norm_params(cfg, device, stack), "mixer": mixer}
     if spec.post_norms:
         p["post_norm"] = norm_params(cfg, device, stack)
     if spec.ffn != "none":
@@ -64,6 +74,8 @@ def init_layer_cache(cfg: ModelConfig, spec: LayerSpec, batch: int,
                      max_seq: int, dtype: torch.dtype, device: torch.device,
                      swa_override: Optional[int] = None,
                      stack: Sequence[int] = ()) -> Dict:
+    if spec.mixer == "mamba2":
+        return ssm_mod.init_mamba_cache(cfg, batch, dtype, device, stack)
     return attn.init_attn_cache(cfg, spec, batch, max_seq, dtype, device,
                                 swa_override=swa_override, stack=stack)
 
@@ -97,9 +109,12 @@ def apply_layer(cfg: ModelConfig, spec: LayerSpec, p: Dict, x: torch.Tensor,
                 swa_override: Optional[int] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Forward without a cache. Returns (x, aux_loss)."""
-    h = attn.attention_full(cfg, spec, p["mixer"],
-                            apply_norm(cfg, p["pre_norm"], x), positions,
-                            causal=causal, swa_override=swa_override)
+    h = apply_norm(cfg, p["pre_norm"], x)
+    if spec.mixer == "mamba2":
+        h = ssm_mod.mamba_forward(cfg, p["mixer"], h)
+    else:
+        h = attn.attention_full(cfg, spec, p["mixer"], h, positions,
+                                causal=causal, swa_override=swa_override)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return _post_mixer(cfg, spec, p, x, h), aux
 
@@ -110,9 +125,12 @@ def apply_layer_prefill(cfg: ModelConfig, spec: LayerSpec, p: Dict,
                         ) -> Tuple[torch.Tensor, torch.Tensor, Dict]:
     """Forward over the prompt, filling ``cache`` in place.
     Returns (x, aux_loss, cache)."""
-    h, cache = attn.attention_prefill(
-        cfg, spec, p["mixer"], apply_norm(cfg, p["pre_norm"], x), positions,
-        cache, swa_override=swa_override)
+    h = apply_norm(cfg, p["pre_norm"], x)
+    if spec.mixer == "mamba2":
+        h, cache = ssm_mod.mamba_prefill(cfg, p["mixer"], h, cache)
+    else:
+        h, cache = attn.attention_prefill(cfg, spec, p["mixer"], h, positions,
+                                          cache, swa_override=swa_override)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return _post_mixer(cfg, spec, p, x, h), aux, cache
 
@@ -122,7 +140,11 @@ def apply_layer_decode(cfg: ModelConfig, spec: LayerSpec, p: Dict,
                        cache: Dict, *, swa_override: Optional[int] = None
                        ) -> Tuple[torch.Tensor, Dict]:
     """One token (B,1,D); the cache is updated in place."""
-    h, cache = attn.attention_decode(
-        cfg, spec, p["mixer"], apply_norm(cfg, p["pre_norm"], x), pos,
-        positions, cache, swa_override=swa_override)
+    h = apply_norm(cfg, p["pre_norm"], x)
+    if spec.mixer == "mamba2":
+        h, cache = ssm_mod.mamba_decode(cfg, p["mixer"], h, cache)
+    else:
+        h, cache = attn.attention_decode(cfg, spec, p["mixer"], h, pos,
+                                         positions, cache,
+                                         swa_override=swa_override)
     return _post_mixer(cfg, spec, p, x, h), cache

@@ -6,16 +6,22 @@ that has only PyTorch (``tests/conftest.py`` imports JAX, hence
 
     PYTHONPATH=src python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py
 
-Tolerances: 2e-2 in bf16 and 2e-5 in fp32 (TF32 off), as ``TOL`` in
-``tests/test_kernels.py``.
+Tolerances: attention 2e-2 in bf16 and 2e-5 in fp32 (TF32 off), as
+``TOL`` in ``tests/test_kernels.py``; the SSD scan (fp32 out) atol 3e-5 and
+rtol 1e-4, as its sweep there.
 """
 
 import pytest
 import torch
 
+from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels.flash_attention import flash_attention_cuda
-from repro_torch.kernels.paged_attention import paged_decode_attention_cuda
+from repro_torch.kernels.paged_attention import (
+    decode_attention_cuda,
+    paged_decode_attention_cuda,
+)
+from repro_torch.kernels.ssd_scan import ssd_scan_cuda
 
 CUDA_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 
@@ -39,6 +45,7 @@ def cuda_device():
     (1, 4, 2, 100, 64, 32, None, True),          # head_dim 64, window
     (1, 2, 2, 128, 128, None, None, True),       # head_dim 128
     (1, 4, 2, 70, 96, None, None, False),        # non-causal
+    (4, 32, 32, 512, 112, None, None, True),     # zamba2 prefill, D=112
 ])
 def test_flash_kernel_matches_plain_on_card(cuda_device, dtype, b, hq, hkv,
                                             s, d, window, cap, causal):
@@ -79,3 +86,89 @@ def test_paged_kernel_matches_plain_on_card(cuda_device, dtype, b, hq, hkv, d,
     torch.cuda.synchronize()
     tol = CUDA_TOL[dtype]
     torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,hq,hkv,c,d,pos,cap", [
+    (4, 32, 32, 576, 96, 520, None),       # phi3 decode
+    (4, 32, 32, 576, 112, 512, None),      # zamba2 decode
+    (4, 16, 8, 4096, 256, 5000, 50.0),     # gemma2, the ring wraps
+    (2, 4, 2, 64, 32, 63, None),           # ring wrap positions
+    (2, 4, 2, 64, 32, 64, None),
+    (2, 4, 2, 64, 32, 65, None),
+    (2, 4, 2, 64, 32, 95, None),
+    (2, 4, 2, 64, 32, 96, None),
+    (2, 4, 2, 64, 32, 200, None),
+    (1, 8, 8, 100, 16, 99, None),          # ragged last tile
+    (3, 6, 1, 48, 64, 20, 30.0),           # G = 6, part of the ring empty
+])
+def test_decode_kernel_matches_plain_on_card(cuda_device, dtype, b, hq, hkv,
+                                             c, d, pos, cap):
+    g = torch.Generator(device=cuda_device).manual_seed(2)
+
+    def rnd(*shape):
+        return torch.randn(*shape, device=cuda_device, generator=g).to(dtype)
+
+    q, k, v = rnd(b, hq, d), rnd(b, c, hkv, d), rnd(b, c, hkv, d)
+    out = decode_attention_cuda(q, k, v, pos, scale=d ** -0.5, logit_cap=cap)
+    ref = tref.decode_attention_ref(q, k.transpose(1, 2), v.transpose(1, 2),
+                                    pos, scale=d ** -0.5, logit_cap=cap)
+    torch.cuda.synchronize()
+    tol = CUDA_TOL[dtype]
+    torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=tol)
+    # the model-layout wrapper launches the same kernel
+    wrapped = tops.decode_attention(q[:, None], k, v, torch.tensor(pos),
+                                    scale=d ** -0.5, logit_cap=cap)
+    torch.testing.assert_close(wrapped[:, 0], out, atol=0, rtol=0)
+
+
+def _ssd_inputs(device, b, s, h, p, n, bc_dtype, shared_bc, seed=3):
+    g = torch.Generator(device=device).manual_seed(seed)
+
+    def rnd(*shape):
+        return torch.randn(*shape, device=device, generator=g)
+
+    x = rnd(b, s, h, p)
+    a = -rnd(b, s, h).abs() * 0.1
+    if shared_bc:   # one group broadcast to every head, head stride 0
+        bm = (rnd(b, s, 1, n) * 0.3).to(bc_dtype).expand(b, s, h, n)
+        cm = (rnd(b, s, 1, n) * 0.3).to(bc_dtype).expand(b, s, h, n)
+    else:
+        bm = (rnd(b, s, h, n) * 0.3).to(bc_dtype)
+        cm = (rnd(b, s, h, n) * 0.3).to(bc_dtype)
+    return x, a, bm, cm
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,h,p,n,chunk,bc_dtype,shared_bc", [
+    (4, 512, 112, 64, 64, 256, torch.bfloat16, True),    # zamba2 prefill
+    (4, 2048, 32, 64, 128, 256, torch.bfloat16, True),   # mamba2-370m
+    (2, 128, 4, 32, 16, 32, torch.float32, False),       # tests/test_kernels
+    (1, 256, 2, 64, 32, 64, torch.float32, False),
+    (2, 64, 8, 16, 8, 16, torch.float32, False),
+    (2, 100, 3, 40, 24, 100, torch.float32, True),       # ragged tiles
+    (1, 12, 4, 32, 32, 12, torch.bfloat16, True),        # chunk < 64
+])
+def test_ssd_kernel_matches_plain_on_card(cuda_device, b, s, h, p, n, chunk,
+                                          bc_dtype, shared_bc):
+    x, a, bm, cm = _ssd_inputs(cuda_device, b, s, h, p, n, bc_dtype,
+                               shared_bc)
+    y, state = ssd_scan_cuda(x, a, bm, cm, chunk)
+    y_ref, state_ref = tref.ssd_scan_ref(x, a, bm, cm, chunk)
+    torch.cuda.synchronize()
+    assert y.dtype == state.dtype == torch.float32
+    torch.testing.assert_close(y, y_ref, atol=3e-5, rtol=1e-4)
+    torch.testing.assert_close(state, state_ref, atol=3e-5, rtol=1e-4)
+
+
+@pytest.mark.cuda
+def test_ssd_kernel_refuses_inputs_that_require_grad(cuda_device):
+    x, a, bm, cm = _ssd_inputs(cuda_device, 1, 64, 2, 32, 16, torch.float32,
+                               False)
+    before = ssd_scan_cuda.launches
+    with pytest.raises(ValueError, match="requires grad"):
+        ssd_scan_cuda(x.requires_grad_(), a, bm, cm, 64)
+    with pytest.raises(ValueError, match="multiple of chunk"):
+        ssd_scan_cuda(x.detach(), a, bm, cm, 48)
+    assert ssd_scan_cuda.launches == before

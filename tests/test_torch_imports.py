@@ -18,6 +18,9 @@ names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
                                                "repro_torch.")]
 for name in names:
     importlib.import_module(name)
+for name in ("repro_torch.models.ssm", "repro_torch.kernels.ssd_scan",
+             "repro_torch.configs.mamba2_370m", "repro_torch.configs.zamba2_7b"):
+    assert name in names, name
 assert "repro" not in sys.modules, "the JAX package was imported"
 assert not any(m == "jax" or m.startswith("jax.") for m in sys.modules
                if sys.modules[m] is not None)

@@ -1,11 +1,13 @@
-"""The PyTorch port's attention kernels against the JAX package's.
+"""The PyTorch port's kernels against the JAX package's.
 
 On the CPU the port runs its kernels' plain versions (``kernels/ref.py``);
 those are held against the Pallas kernels (interpret mode) and the JAX
 oracles in ``repro.kernels.ref``, on the sweeps of
-``tests/test_kernels.py``. Inputs come from numpy with a seed. Tolerance: 2e-5 in fp32 — the two sides sum
-in different orders. ``test_torch_cuda.py`` holds the hand-written
-kernels against the plain versions on the card.
+``tests/test_kernels.py``. Inputs come from numpy with a seed. Tolerance:
+attention 2e-5 in fp32, the SSD scan atol 3e-5 and rtol 1e-4 (as its sweep
+in ``tests/test_kernels.py``) — the two sides sum in different orders.
+``test_torch_cuda.py`` holds the hand-written kernels against the plain
+versions on the card.
 """
 
 import jax.numpy as jnp
@@ -13,13 +15,22 @@ import numpy as np
 import pytest
 import torch
 
+from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro.kernels.flash_attention import flash_attention_pallas
-from repro.kernels.paged_attention import paged_decode_attention_pallas
+from repro.kernels.paged_attention import (
+    decode_attention_pallas,
+    paged_decode_attention_pallas,
+)
+from repro.kernels.ssd_scan import ssd_scan_pallas
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels.flash_attention import flash_attention_cuda
-from repro_torch.kernels.paged_attention import paged_decode_attention_cuda
+from repro_torch.kernels.paged_attention import (
+    decode_attention_cuda,
+    paged_decode_attention_cuda,
+)
+from repro_torch.kernels.ssd_scan import ssd_scan_cuda
 from repro_torch.models import runtime
 
 ATOL = 2e-5
@@ -94,7 +105,6 @@ def test_flash_gemma2_head_dim_window_and_cap():
 def test_flash_model_layout_wrapper_matches_jax_ops():
     """``ops.flash_attention`` takes (B,S,H,D) like ``repro.kernels.ops``;
     on the CPU it runs the plain version and launches nothing."""
-    from repro.kernels import ops as jops
     rng = np.random.default_rng(3)
     q, k, v = (_randn(rng, 2, 33, 4, 16), _randn(rng, 2, 33, 2, 16),
                _randn(rng, 2, 33, 2, 16))
@@ -187,6 +197,120 @@ def test_paged_plain_ref_is_bitwise_the_gather_path():
 
 
 # ---------------------------------------------------------------------------
+# ring-cache decode attention
+# ---------------------------------------------------------------------------
+
+
+def _decode_both(seed, b, hq, hkv, c, d, pos, cap=None):
+    """The port's plain version, the Pallas kernel and the JAX oracle on one
+    set of inputs (kernel layout: k/v (B,Hkv,C,D))."""
+    rng = np.random.default_rng(seed)
+    q, k, v = (_randn(rng, b, hq, d), _randn(rng, b, hkv, c, d),
+               _randn(rng, b, hkv, c, d))
+    kw = dict(scale=d ** -0.5, logit_cap=cap)
+    out = tref.decode_attention_ref(*map(torch.from_numpy, (q, k, v)), pos,
+                                    **kw)
+    j_args = (jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.int32(pos))
+    return (out, decode_attention_pallas(*j_args, block_k=32, **kw),
+            jref.decode_attention_ref(*j_args, **kw))
+
+
+@pytest.mark.parametrize("b,hq,hkv,c,d,pos", [
+    (2, 4, 2, 64, 32, 5),
+    (2, 4, 2, 64, 32, 63),
+    (2, 4, 2, 64, 32, 200),   # wrapped ring
+    (1, 8, 8, 100, 16, 99),
+    (3, 6, 1, 48, 64, 20),
+])
+def test_decode_plain_matches_pallas_and_ref(b, hq, hkv, c, d, pos):
+    out, pallas, oracle = _decode_both(20, b, hq, hkv, c, d, pos)
+    _close(out, pallas)
+    _close(out, oracle)
+
+
+@pytest.mark.parametrize("pos", [63, 64, 65, 95, 96, 200])
+@pytest.mark.parametrize("cap", [None, 30.0])
+def test_decode_plain_ring_wrap_matches_pallas(pos, cap):
+    """Positions at, just past and mid-way through the ring's block
+    boundaries, where the validity mask wraps inside a kv block."""
+    out, pallas, oracle = _decode_both(21, 2, 4, 2, 64, 32, pos, cap)
+    _close(out, pallas)
+    _close(out, oracle)
+
+
+def test_decode_model_layout_wrapper_matches_jax_ops():
+    """``ops.decode_attention`` takes q (B,1,Hq,D) and the model's
+    (B,C,Hkv,D) cache like ``repro.kernels.ops``; on the CPU it runs the
+    plain version and launches nothing."""
+    rng = np.random.default_rng(22)
+    q, k, v = (_randn(rng, 2, 1, 4, 16), _randn(rng, 2, 40, 2, 16),
+               _randn(rng, 2, 40, 2, 16))
+    before = decode_attention_cuda.launches
+    for pos in (7, 39, 57):
+        out = tops.decode_attention(*map(torch.from_numpy, (q, k, v)),
+                                    torch.tensor(pos), scale=0.25,
+                                    logit_cap=20.0)
+        assert out.shape == (2, 1, 4, 16)
+        _close(out, jops.decode_attention(*map(jnp.asarray, (q, k, v)),
+                                          jnp.int32(pos), scale=0.25,
+                                          logit_cap=20.0))
+    assert decode_attention_cuda.launches == before
+
+
+# ---------------------------------------------------------------------------
+# Mamba2 SSD chunked scan
+# ---------------------------------------------------------------------------
+
+
+def _ssd_inputs(seed, b, s, h, p, n):
+    """x, a = dt*A (negative), B, C as in ``tests/test_kernels.py``."""
+    rng = np.random.default_rng(seed)
+    return (_randn(rng, b, s, h, p), -np.abs(_randn(rng, b, s, h)) * 0.1,
+            _randn(rng, b, s, h, n) * 0.3, _randn(rng, b, s, h, n) * 0.3)
+
+
+def _ssd_close(t, j):
+    np.testing.assert_allclose(t.numpy(), np.asarray(j), atol=3e-5,
+                               rtol=1e-4)
+
+
+@pytest.mark.parametrize("b,s,h,p,n,chunk", [
+    (2, 128, 4, 32, 16, 32),
+    (1, 256, 2, 64, 32, 64),
+    (2, 64, 8, 16, 8, 16),
+])
+def test_ssd_plain_matches_pallas_and_ref(b, s, h, p, n, chunk):
+    arrays = _ssd_inputs(30, b, s, h, p, n)
+    y, state = tref.ssd_scan_ref(*map(torch.from_numpy, arrays), chunk)
+    assert y.shape == (b, s, h, p) and state.shape == (b, h, p, n)
+    jargs = [jnp.asarray(x) for x in arrays]
+    for jy, jstate in (ssd_scan_pallas(*jargs, chunk),
+                       jref.ssd_scan_ref(*jargs, chunk)):
+        _ssd_close(y, jy)
+        _ssd_close(state, jstate)
+
+
+def test_ssd_model_layout_wrapper_reads_head_broadcast_b_and_c():
+    """``ops.ssd_scan`` on the CPU runs the plain version and launches
+    nothing; B and C broadcast to every head with stride 0 (as the model
+    passes one group) give what the materialised copies give in JAX."""
+    x, a, bm, cm = _ssd_inputs(31, 2, 96, 4, 16, 8)
+    bm1, cm1 = bm[:, :, :1], cm[:, :, :1]
+    tb = torch.from_numpy(bm1).expand(2, 96, 4, 8)
+    tc = torch.from_numpy(cm1).expand(2, 96, 4, 8)
+    assert tb.stride(2) == 0
+    before = ssd_scan_cuda.launches
+    y, state = tops.ssd_scan(torch.from_numpy(x), torch.from_numpy(a), tb,
+                             tc, 32)
+    assert ssd_scan_cuda.launches == before
+    jy, jstate = jops.ssd_scan(jnp.asarray(x), jnp.asarray(a),
+                               jnp.repeat(jnp.asarray(bm1), 4, axis=2),
+                               jnp.repeat(jnp.asarray(cm1), 4, axis=2), 32)
+    _ssd_close(y, jy)
+    _ssd_close(state, jstate)
+
+
+# ---------------------------------------------------------------------------
 # dispatch: CPU tensors take the plain version, CUDA entry points refuse them
 # ---------------------------------------------------------------------------
 
@@ -207,5 +331,11 @@ def test_cpu_tensors_take_the_plain_path_and_kernels_refuse_them():
         paged_decode_attention_cuda(qd, pages, pages,
                                     torch.zeros(1, dtype=torch.int32),
                                     tail, tail, 1, scale=1.0)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        decode_attention_cuda(qd, tail, tail, 3, scale=1.0)
+    x = torch.zeros(1, 8, 2, 4)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        ssd_scan_cuda(x, torch.zeros(1, 8, 2), x, x, 8)
     counts = tops.launch_counts()
-    assert set(counts) == {"flash_attention", "paged_decode_attention"}
+    assert set(counts) == {"flash_attention", "paged_decode_attention",
+                           "decode_attention", "ssd_scan"}

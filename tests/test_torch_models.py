@@ -47,7 +47,9 @@ def _configs(name):
                           TorchLayerSpec, TorchSegment, 6))
     arch, kv = {"phi3": ("phi3-mini-3.8b", None),
                 "gemma2": ("gemma2-9b", None),
-                "phi3-gqa": ("phi3-mini-3.8b", 2)}[name]
+                "phi3-gqa": ("phi3-mini-3.8b", 2),
+                "mamba2": ("mamba2-370m", None),
+                "zamba2": ("zamba2-7b", None)}[name]
     jc, tc = JAX_REGISTRY[arch].reduced(), TORCH_REGISTRY[arch].reduced()
     if kv is not None:
         jc = dataclasses.replace(jc, n_kv_heads=kv)
@@ -55,7 +57,8 @@ def _configs(name):
     return jc, tc
 
 
-CONFIGS = ["phi3", "gemma2", "phi3-gqa", "gemma2-windowed"]
+CONFIGS = ["phi3", "gemma2", "phi3-gqa", "gemma2-windowed", "mamba2",
+           "zamba2"]
 
 
 def _pair(name, seed=0):

@@ -29,6 +29,27 @@ CPU = torch.device("cpu")
 ARCH = "phi3-mini-3.8b"
 
 
+def _pool_counts(snap):
+    """A pool snapshot without what depends on timing (measured times, how
+    many transfers were in flight when waited on) or on the framework (the
+    backends' names, the JAX pool's admission bookkeeping)."""
+    out = {}
+    for k, v in snap.items():
+        if k == "reserved":
+            continue
+        if k == "transfer":
+            v = {kk: vv for kk, vv in v.items()
+                 if kk not in ("blocked_s", "backpressure_s", "pairs",
+                               "waits_overlapped", "waits_blocked",
+                               "backpressure_waits", "max_in_flight")}
+            v["pairs"] = {p: (d["transfers"], d["bytes"])
+                          for p, d in snap["transfer"]["pairs"].items()}
+        elif isinstance(v, dict):
+            v = {kk: vv for kk, vv in v.items() if kk != "backend"}
+        out[k] = v
+    return out
+
+
 def test_serving_offload_kv_equals_resident_and_jax():
     jcfg, tcfg = JAX_REGISTRY[ARCH].reduced(), TORCH_REGISTRY[ARCH].reduced()
     jm, tm = jax_build_model(jcfg), torch_build_model(tcfg)
@@ -60,6 +81,69 @@ def test_serving_offload_kv_equals_resident_and_jax():
     assert pool["tier/host"]["entries"] == 0
     names = [e.name for e in tracer.events()]
     assert names.count("cache_round_trip") == 7 and "generate" in names
+
+
+def test_hybrid_serving_offload_kv_matches_jax_tokens_and_pool_traffic():
+    """zamba2 (Mamba2 + attention) through both engines, resident and
+    ``offload_kv``, with a bf16 cache: the round trip carries 14 leaves in
+    two dtypes (conv, k, v in bf16; the SSM state always fp32). Tokens,
+    round trips and the pool's counts and bytes equal the JAX engine's."""
+    arch, b, s0, new, max_seq = "zamba2-7b", 2, 12, 6, 20
+    jcfg, tcfg = JAX_REGISTRY[arch].reduced(), TORCH_REGISTRY[arch].reduced()
+    jm, tm = jax_build_model(jcfg), torch_build_model(tcfg)
+    jp = jm.init(jax.random.key(0))
+    tp = params_from_numpy(jax.tree.map(np.asarray, jp), CPU)
+    toks = np.random.default_rng(1).integers(0, tcfg.vocab_size, (b, s0),
+                                             dtype=np.int32)
+    jpool, tpool = jax_default_pool(), default_pool(device="cpu")
+    jres = JaxServeEngine(jm, jp, max_seq=max_seq,
+                          cache_dtype=jnp.bfloat16).generate(
+        {"tokens": jnp.asarray(toks)}, new)
+    joff_engine = JaxServeEngine(jm, jp, max_seq=max_seq,
+                                 cache_dtype=jnp.bfloat16, offload_kv=True,
+                                 pool=jpool)
+    joff = joff_engine.generate({"tokens": jnp.asarray(toks)}, new)
+    res = ServeEngine(tm, tp, max_seq=max_seq,
+                      cache_dtype=torch.bfloat16).generate(
+        {"tokens": torch.from_numpy(toks)}, new)
+    off_engine = ServeEngine(tm, tp, max_seq=max_seq,
+                             cache_dtype=torch.bfloat16, offload_kv=True,
+                             pool=tpool)
+    buffers = {}       # pool key -> {(host buffer address, dtype)}
+    put = tpool.put
+
+    def recording_put(key, value, *args, **kwargs):
+        entry = put(key, value, *args, **kwargs)
+        buffers.setdefault(key, set()).add((entry.handle.data_ptr(),
+                                            entry.handle.dtype))
+        return entry
+
+    tpool.put = recording_put
+    off = off_engine.generate({"tokens": torch.from_numpy(toks)}, new)
+
+    np.testing.assert_array_equal(np.asarray(jres), np.asarray(joff))
+    np.testing.assert_array_equal(res.numpy(), np.asarray(jres))
+    assert torch.equal(res, off)
+    trips = off_engine.stats.cache_round_trips
+    assert trips == joff_engine.stats.cache_round_trips == new - 1
+    snap = off_engine.pool_stats()
+    assert _pool_counts(snap) == _pool_counts(joff_engine.pool_stats())
+    # every leaf is stored and fetched once per step, at its own dtype
+    leaves = tm.init_cache(b, max_seq, torch.bfloat16, device=CPU)
+    flat = [t for seg in leaves["segments"] for layer in seg.values()
+            for t in layer.values()]
+    assert len(flat) == 14
+    assert {t.dtype for t in flat} == {torch.bfloat16, torch.float32}
+    step_bytes = sum(t.numel() * t.element_size() for t in flat)
+    assert snap["puts"] == snap["gets"] == 14 * trips
+    assert snap["bytes_stored"] == snap["bytes_fetched"] == step_bytes * trips
+    assert snap["tier/host"]["entries"] == 0
+    # each key's host buffer is made once and reused at every later step
+    assert len(buffers) == 14 and all(len(v) == 1 for v in buffers.values())
+    assert {d for v in buffers.values() for _, d in v} == {torch.bfloat16,
+                                                           torch.float32}
+    tpool.close()
+    jpool.close()
 
 
 def test_offload_kv_frees_each_steps_cache_without_the_collector():
