@@ -13,29 +13,36 @@ non-zero exit):
 2. kernels — each kernel against its plain PyTorch version on the card:
    flash and ring decode at phi3's, zamba2's (head dim 112) and gemma2's
    shapes, paged decode at phi3's and gemma2's, in bf16 (tolerance 2e-2)
-   and fp32 (2e-5, TF32 off); the SSD scan at zamba2's and mamba2-370m's
-   shapes (fp32 out, atol 3e-5, rtol 1e-4). Kernel, plain and library times
-   at each kernel's main shape (flash also at head dim 112): device time (launches queued behind a spin
-   kernel, so host overhead between them is not counted) and time per call.
+   and fp32 (2e-5, TF32 off); the ring kernel also at the edges of its
+   split-K (all slots masked, splits with no valid slot, a ragged last
+   split, a ring shorter than one split); the SSD scan at zamba2's and
+   mamba2-370m's shapes (fp32 out, atol 3e-5, rtol 1e-4). Each flash case
+   logs the kernel instance it took (bf16 at head dims 64-128: wgmma).
+   Kernel, plain and library times at each kernel's main shape (flash also
+   at head dim 112): device time (launches queued behind a spin kernel, so
+   host overhead between them is not counted) and time per call.
 3. serve   — phi3-mini-3.8b at full width and depth in bf16, weights drawn
    from a seeded generator on the card: ``ServeEngine.generate`` resident,
    then with ``offload_kv`` (the whole cache makes a Store/Prefetch round
    trip through the memory pool every decode step). Tokens must agree,
-   every prefill must launch the flash kernel once per layer, and the
-   prefill's logits must agree with the plain path's, in bf16 and in fp32.
-   A short generate in each mode is then profiled for the device's busy
-   time and its largest kernels.
+   every prefill must launch the flash kernel once per layer and every
+   decode step the ring kernel once per layer; the prefill's logits and
+   one decode step's must agree with the plain path's, in bf16 and in
+   fp32. A short generate in each mode is then profiled for the device's
+   busy time and its largest kernels.
 4. paged   — ``PagedKVCache.attend_fused`` (the paged-decode kernel over
    pool pages) against ``attend`` (the gather path) at phi3's attention
    widths, with every page selected and then top-4 of an 8-page budget.
 5. hybrid  — zamba2-7b (68 Mamba2 and 13 attention layers) at full width
    and depth, as in phase 3: every prefill launches the SSD kernel once per
-   Mamba2 layer and flash once per attention layer; the ``offload_kv``
-   round trip carries the conv, SSM-state (fp32) and K/V leaves. The
-   prefill logits are checked on three prompts, the bf16 rule by RMS error.
+   Mamba2 layer and flash once per attention layer, every decode step the
+   ring kernel once per attention layer; the ``offload_kv`` round trip
+   carries the conv, SSM-state (fp32) and K/V leaves. The prefill logits
+   are checked on three prompts, the bf16 rule by RMS error.
 6. ring    — ``ops.decode_attention`` (the ring-decode kernel) over the
-   caches that zamba2's plain ``attention_decode`` has just written, held
-   against that function's output, layer by layer for a few steps.
+   caches that zamba2's ``attention_decode`` on the plain path has just
+   written, held against that function's output, layer by layer for a few
+   steps.
 7. ssm     — mamba2-370m (48 Mamba2 layers) at full width and depth:
    ``Model.forward`` at B=4, S=2048 in bf16, one SSD launch per layer,
    logits held against the plain path as in phase 3.
@@ -84,7 +91,7 @@ PAGED = {"name": "paged_decode_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
          "replaces": "src/repro/kernels/paged_attention.py:175"}
 DECODE = {"name": "decode_attention", "route": "cuda",
-          "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
+          "source": "src/repro_torch/kernels/csrc/decode_attention.cu",
           "replaces": "src/repro/kernels/paged_attention.py:75"}
 SSD = {"name": "ssd_scan", "route": "cuda",
        "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
@@ -264,17 +271,21 @@ def kernels_flash(torch, dev, entry, randn, tols) -> None:
             k, v = randn(b, hkv, s, d, dtype=dtype), randn(b, hkv, s, d,
                                                           dtype=dtype)
             kw = dict(scale=d ** -0.5, window=window, logit_cap=cap)
-            err = check(torch, f"flash/{name}/{str(dtype)[6:]}",
+            err = check(torch, f"flash/{name}/{str(dtype)[6:]}"
+                        f"/{flash_instance(torch, flash_attention_cuda, q, k, v, kw)}",
                         flash_attention_cuda(q, k, v, **kw),
                         flash_attention_ref(q, k, v, **kw), tol)
             if name == "phi3" and dtype == torch.bfloat16:
                 main_err = err
     # times at phi3's head dim (the main shape, in the kernels line) and at
-    # zamba2's 112, which runs the kernel's 128 instance
+    # zamba2's 112
     b, h, s = 4, 32, PROMPT
     for d in (96, 112):
         q, k, v = (randn(b, h, s, d, dtype=torch.bfloat16) for _ in range(3))
         scale = d ** -0.5
+        instance = flash_instance(torch, flash_attention_cuda, q, k, v,
+                                  dict(scale=scale))
+        assert instance == "wgmma", (d, instance)
         nbytes = 4 * q.numel() * q.element_size()      # q, k, v in; o out
         flops = 4 * b * h * d * s * (s + 1) / 2        # causal: QK^T and PV
         bound_ms, bound_by = bound(nbytes, flops)
@@ -288,11 +299,23 @@ def kernels_flash(torch, dev, entry, randn, tols) -> None:
             entry.update(max_abs_err=main_err, tol=tols[torch.bfloat16],
                          ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                          bound_by=bound_by, library_ms=library_ms)
-        log("kernels", kernel="flash_attention",
+        log("kernels", kernel="flash_attention", instance=instance,
             shape=f"B{b}xH{h}xS{s}xD{d}/bf16", ms=f"{ms:.4f}",
             plain_ms=f"{plain_ms:.4f}", library_ms=f"{library_ms:.4f}",
             bound_ms=f"{bound_ms:.4f}", call_ms=f"{call_ms:.4f}",
             plain_call_ms=f"{plain_call_ms:.4f}")
+
+
+def flash_instance(torch, flash_attention_cuda, q, k, v, kw) -> str:
+    """The kernel instance one call takes (one extra launch, not counted on
+    any path: the counts are reset before each phase)."""
+    before = dict(flash_attention_cuda.instances)
+    flash_attention_cuda(q, k, v, **kw)
+    torch.cuda.synchronize()
+    taken = [n for n, c in flash_attention_cuda.instances.items()
+             if c != before[n]]
+    assert len(taken) == 1, taken
+    return taken[0]
 
 
 def kernels_paged(torch, dev, entry, randn, tols) -> None:
@@ -350,7 +373,10 @@ def kernels_paged(torch, dev, entry, randn, tols) -> None:
 
 
 def kernels_decode(torch, dev, entry, randn, tols) -> None:
-    from repro_torch.kernels.paged_attention import decode_attention_cuda
+    from repro_torch.kernels.paged_attention import (
+        decode_attention_cuda,
+        ring_split,
+    )
     from repro_torch.kernels.ref import decode_attention_ref
     import torch.nn.functional as F
 
@@ -362,6 +388,15 @@ def kernels_decode(torch, dev, entry, randn, tols) -> None:
              ("gemma2-wrapped", 2, 16, 8, 4096, 256, 5000, 50.0)]
     cases += [(f"wrap-pos{p}", 2, 4, 2, 64, 32, p, None)
               for p in (63, 64, 65, 95, 96, 200)]
+    # the split-K cuts (tests/test_torch_kernels.py's split model), as
+    # ring_split makes them on a 132-SM card: every slot masked and splits
+    # with no valid slot (4 splits of 16), a ragged last split, a ring
+    # shorter than one split, one split of 9 tiles (1056 rows)
+    cases += [("all-masked", 2, 4, 2, 64, 32, -1, 30.0),
+              ("invalid-splits", 2, 4, 2, 64, 32, 10, None),
+              ("ragged-split", 2, 4, 2, 100, 32, 99, 30.0),
+              ("short-ring", 2, 4, 2, 10, 32, 7, None),
+              ("one-split", 132, 16, 8, MAX_SEQ, 32, PROMPT + 8, None)]
     for name, b, hq, hkv, c, d, pos, cap in cases:
         for dtype, tol in tols.items():
             q = randn(b, hq, d, dtype=dtype)
@@ -402,8 +437,11 @@ def kernels_decode(torch, dev, entry, randn, tols) -> None:
           decode_attention_ref(q, kt, vt, pos, scale=scale), tols[q.dtype])
     entry.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                  bound_by=bound_by, library_ms=library_ms)
+    split = ring_split(b * hkv, c,
+                       torch.cuda.get_device_properties(dev).multi_processor_count)
     log("kernels", kernel="decode_attention",
         shape=f"B{b}xHq{hq}xHkv{hkv}xC{c}xD{d}/pos{pos}/bf16", valid_slots=rows,
+        split=split, blocks=b * hkv * -(-c // split),
         ms=f"{ms:.4f}",
         plain_ms=f"{plain_ms:.4f}", library_ms=f"{library_ms:.4f}",
         bound_ms=f"{bound_ms:.4f}", call_ms=f"{call_ms:.4f}",
@@ -555,6 +593,51 @@ def check_logits(torch, phase: str, run, params, n_prompts: int = 1,
     torch.cuda.empty_cache()
 
 
+def check_decode_logits(torch, phase: str, model, params, tokens) -> None:
+    """One decode step's logits with the ring kernel against the plain
+    decode (``use_attention_impl("plain")``), from one cache that a plain
+    prefill filled, at pos = PROMPT. fp32 (TF32 off): within 1e-4. bf16:
+    the kernel path's RMS error against fp32 plain within 5 % of the plain
+    bf16 path's (the two differ only in the decode attention, which both
+    sum in fp32 and round to bf16 once)."""
+    from repro_torch.models.runtime import use_attention_impl
+
+    dev = tokens.device
+
+    def step(weights, dtype):
+        cache = model.init_cache(BATCH, MAX_SEQ, dtype, dev)
+        with torch.inference_mode():
+            with use_attention_impl("plain"):
+                logits, cache = model.prefill(weights, {"tokens": tokens},
+                                              cache)
+            tok = logits[:, 0].argmax(-1).to(torch.int32)[:, None]
+            twin = _tree_map(lambda t: t.clone(), cache)
+            kernel, _ = model.decode_step(weights, cache, tok, PROMPT)
+            with use_attention_impl("plain"):
+                plain, _ = model.decode_step(weights, twin, tok, PROMPT)
+        del cache, twin
+        return kernel.float(), plain.float()
+
+    kernel16, plain16 = step(params, torch.bfloat16)
+    params32 = _tree_map(lambda t: t.float(), params)
+    kernel32, plain32 = step(params32, torch.float32)
+    del params32
+    err32 = (kernel32 - plain32).abs().max().item()
+    assert bool(torch.isfinite(kernel16).all())
+    assert bool(torch.isfinite(kernel32).all())
+    rms_kernel = (kernel16 - plain32).pow(2).mean().sqrt().item()
+    rms_plain = (plain16 - plain32).pow(2).mean().sqrt().item()
+    log(phase, check="decode-step logits kernel vs plain", pos=PROMPT,
+        fp32_max_abs_err=f"{err32:.3e}", fp32_tol=1e-4,
+        bf16_kernel_rms=f"{rms_kernel:.3e}", bf16_plain_rms=f"{rms_plain:.3e}",
+        rms_tol=f"1.05*plain={1.05 * rms_plain:.3e}",
+        bf16_kernel_vs_plain_max_abs=f"{(kernel16 - plain16).abs().max().item():.3e}")
+    assert torch.allclose(kernel32, plain32, atol=1e-4, rtol=1e-4), err32
+    assert rms_kernel <= 1.05 * rms_plain, (rms_kernel, rms_plain)
+    del kernel16, plain16, kernel32, plain32
+    torch.cuda.empty_cache()
+
+
 def mixers(cfg):
     """(attention layers, Mamba2 layers) of a configuration."""
     specs = [spec for seg in cfg.segments for spec in seg.pattern
@@ -601,6 +684,7 @@ def serve(torch, dev, kernels, arch: str, phase: str, n_prompts: int = 1,
             return model.prefill(weights, {"tokens": prompts[i]}, cache)[0]
 
     check_logits(torch, phase, prefill, params, n_prompts, stat)
+    check_decode_logits(torch, phase, model, params, prompts[0])
     del prompts[1:]
     _, kernel_prefill_s = synced_s(torch, lambda: prefill(params, bf16))
     with use_attention_impl("plain"):
@@ -643,9 +727,11 @@ def serve(torch, dev, kernels, arch: str, phase: str, n_prompts: int = 1,
     assert int(res.min()) >= 0 and int(res.max()) < cfg.vocab_size
     assert torch.equal(res, off), "offload_kv tokens differ from resident"
     # one prefill per generate: each attention layer launches flash once,
-    # each Mamba2 layer the SSD scan once; decode launches neither
+    # each Mamba2 layer the SSD scan once; each decode step launches the
+    # ring kernel once per attention layer
     expect = {"flash_attention": n_attn, "ssd_scan": n_mamba,
-              "paged_decode_attention": 0, "decode_attention": 0}
+              "paged_decode_attention": 0,
+              "decode_attention": n_attn * (NEW_TOKENS - 1)}
     assert after_resident == expect, (after_resident, expect)
     assert counts == {k: 2 * v for k, v in expect.items()}, counts
     assert offload.stats.cache_round_trips == NEW_TOKENS - 1
@@ -810,12 +896,13 @@ def phase_hybrid(torch, dev, kernels) -> None:
 
 def phase_ring(torch, dev, kernels, model, params, tokens) -> None:
     """After a prefill, each attention layer's plain ``attention_decode``
-    writes its ring cache and attends; ``ops.decode_attention`` (the ring
-    kernel) on the cache it has just written, with the same query, must
-    give the same output (after the layer's output projection, in bf16,
-    2e-2)."""
+    (under ``use_attention_impl("plain")``) writes its ring cache and
+    attends; ``ops.decode_attention`` (the ring kernel) on the cache it has
+    just written, with the same query, must give the same output (after the
+    layer's output projection, in bf16, 2e-2)."""
     from repro_torch.kernels import ops
     from repro_torch.models import attention as attn
+    from repro_torch.models.runtime import use_attention_impl
     from repro_torch.models.transformer import _index
 
     cfg = model.cfg
@@ -838,8 +925,9 @@ def phase_ring(torch, dev, kernels, model, params, tokens) -> None:
                 p = lp["mixer"]
                 x = torch.randn(BATCH, 1, cfg.d_model, device=dev,
                                 generator=gen).to(bf16)
-                plain, _ = attn.attention_decode(cfg, spec, p, x, pos,
-                                                 positions, lc)
+                with use_attention_impl("plain"):
+                    plain, _ = attn.attention_decode(cfg, spec, p, x, pos,
+                                                     positions, lc)
                 q, _, _ = attn._project_qkv(cfg, p, x, positions)
                 o = ops.decode_attention(q, lc["k"], lc["v"], pos,
                                          scale=attn._scale(cfg),

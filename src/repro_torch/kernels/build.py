@@ -24,7 +24,8 @@ from typing import Dict, List, Optional
 import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("flash_attention.cu", "paged_attention.cu", "ssd_scan.cu")
+SOURCES = ("flash_attention.cu", "paged_attention.cu", "decode_attention.cu",
+           "ssd_scan.cu")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = ("-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -38,14 +39,16 @@ MAX_SMEM_BYTES = 232448
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _SIGNATURES = {
     "flash_attention_fwd": (
-        [_P, _P, _P, _P, _I] + [_I] * 6 + [_LL] * 12 + [_F, _I, _I, _F, _P], _I),
+        [_P, _P, _P, _P, _I] + [_I] * 6 + [_LL] * 12 + [_F, _I, _I, _F, _P, _P],
+        _I),
     "paged_decode_attention_fwd": (
         [_P, _P, _P, _P, _I, _I, _P, _P, _I, _P, _I] + [_I] * 5 + [_F, _F, _P],
         _I),
     "paged_decode_attention_smem_bytes": ([_I, _I, _I], ctypes.c_size_t),
     "decode_attention_fwd": (
-        [_P, _P, _P, _P, _I, _LL] + [_I] * 5 + [_LL] * 4 + [_F, _F, _P], _I),
-    "decode_attention_smem_bytes": ([_I, _I], ctypes.c_size_t),
+        [_P, _P, _P, _P, _I, _LL] + [_I] * 5 + [_LL] * 4 + [_F, _F, _I, _P, _P,
+                                                           _P], _I),
+    "decode_attention_smem_bytes": ([_I] * 5, ctypes.c_size_t),
     "ssd_scan_fwd": ([_P] * 6 + [_I] * 7 + [_LL] * 12 + [_P], _I),
     "ssd_scan_smem_bytes": ([_I] * 5, ctypes.c_size_t),
     "hyperoffload_cuda_error_string": ([_I], ctypes.c_char_p),
@@ -90,7 +93,7 @@ def compile_commands(nvcc: str, out_dir: Path, lib: Path) -> List[List[str]]:
     cmds = [[nvcc, *NVCC_FLAGS, "-c", str(CSRC / name),
              "-o", str(out_dir / (Path(name).stem + ".o"))] for name in SOURCES]
     objs = [str(out_dir / (Path(name).stem + ".o")) for name in SOURCES]
-    cmds.append([nvcc, "-shared", *ARCH_FLAGS, *objs, "-o", str(lib)])
+    cmds.append([nvcc, "-shared", *ARCH_FLAGS, *objs, "-ldl", "-o", str(lib)])
     return cmds
 
 

@@ -1,47 +1,39 @@
-// Decode attention for Hopper (sm_90a), written by hand: one query token
-// per sequence over pool pages (paged) or over a ring cache (ring).
+// Paged decode attention for Hopper (sm_90a), written by hand: one query
+// token per sequence over pool pages named by a page table.
 //
-// Replaces: the two Pallas TPU kernels of repro/kernels/paged_attention.py,
-// - paged_decode_attention_pallas (its body _paged_decode_kernel). One query
-//   token per sequence, q (B,Hq,D), attends in one online-softmax pass over
-//   the pages that page_table (n,) names inside the page buffer
-//   (P,B,page,Hkv,D), then over the device tail (B,page,Hkv,D) masked at
-//   tail_len. An empty table with tail_len = 0 returns the mean of v_tail,
-//   exactly as both JAX versions do.
-// - decode_attention_pallas (its body _decode_kernel). One query token per
-//   sequence over a ring cache of C slots, read in the model's (B,C,Hkv,D)
-//   layout through its strides: slot j holds token pos - ((pos - j) mod C)
-//   and is valid iff that token is >= 0. The TPU wrapper builds that mask
-//   on the host side of the kernel; here each block computes it from the
-//   scalar pos, with the mod taken as ((pos - j) % C + C) % C, since C++'s
-//   % truncates toward zero.
-// Both: GQA (the G = Hq/Hkv query heads of one kv head share every K/V
-// load), logit cap cap*tanh(s/cap), finite NEG_INF masking, l == 0 -> 1
-// guard, fp32 accumulation, output in the input type.
+// Replaces: the Pallas TPU kernel repro/kernels/paged_attention.py,
+// function paged_decode_attention_pallas (its body _paged_decode_kernel).
+// One query token per sequence, q (B,Hq,D), attends in one online-softmax
+// pass over the pages that page_table (n,) names inside the page buffer
+// (P,B,page,Hkv,D), then over the device tail (B,page,Hkv,D) masked at
+// tail_len. An empty table with tail_len = 0 returns the mean of v_tail,
+// exactly as both JAX versions do. GQA (the G = Hq/Hkv query heads of one
+// kv head share every K/V load), logit cap cap*tanh(s/cap), finite NEG_INF
+// masking, l == 0 -> 1 guard, fp32 accumulation, output in the input type.
+// (The ring-cache decode kernel, which shared this file's segment step
+// until it took a split-K design of its own, is csrc/decode_attention.cu.)
 //
-// What bounds them on this card: decode reads the whole selected K/V once
-// and does ~4 FLOP per K/V element it reads, so both are bound by memory: at
-// B=4, Hkv=32, D=96 in bf16 the paged kernel over 544 tokens reads ~27 MB
-// (~8 us at 3.35 TB/s) and the ring kernel over C=576 slots ~28 MB (~8.5 us).
+// What bounds it on this card: decode reads the whole selected K/V once
+// and does ~4 FLOP per K/V element it reads, so it is bound by memory: at
+// B=4, Hkv=32, D=96 in bf16 over 544 tokens it reads ~27 MB (~8 us at
+// 3.35 TB/s).
 //
-// What the design does about it: the TPU versions walk the K/V blocks as
-// the sequential innermost grid axis (the paged one through a
-// scalar-prefetch BlockSpec index map, retraced for every table length).
-// Here one block of 128 threads per (kv head, batch row) loops over the
-// segments itself (the TPU grid's sequential kv axis becomes this loop;
-// blocks run in parallel and carry nothing between them): the paged kernel
-// over the pages the device int32 table names and then the tail, so one
-// compiled kernel serves every table length, scrambled tables and n = 0
-// alike; the ring kernel over tiles of 64 slots. Both share one segment
-// step: the segment's K and V are staged once in shared memory (K rows
-// padded to an odd stride) and shared by the G query heads; each thread
-// issues a batch of loads before storing any, since few warps are there to
-// hide latency. A quad of lanes computes each score, a quarter of the head
-// dim per lane. m/l/alpha per query row and the fp32 accumulator live in
-// shared memory, so any head_dim and any G fit without templates. With
-// B*Hkv = 128 blocks they leave a few SMs idle and each block walks its
-// segments one after another; splitting the segments across blocks
-// (split-K) is the next step for speed.
+// What the design does about it: the TPU version walks the pages as the
+// sequential innermost grid axis, through a scalar-prefetch BlockSpec
+// index map retraced for every table length. Here one block of 128 threads
+// per (kv head, batch row) loops over the segments itself (blocks run in
+// parallel and carry nothing between them): over the pages the device
+// int32 table names and then the tail, so one compiled kernel serves every
+// table length, scrambled tables and n = 0 alike. Each segment's K and V
+// are staged once in shared memory (K rows padded to an odd stride) and
+// shared by the G query heads; each thread issues a batch of loads before
+// storing any, since few warps are there to hide latency. A quad of lanes
+// computes each score, a quarter of the head dim per lane. m/l/alpha per
+// query row and the fp32 accumulator live in shared memory, so any
+// head_dim and any G fit without templates. With B*Hkv = 128 blocks they
+// leave a few SMs idle and each block walks its segments one after
+// another; the split-K design of csrc/decode_attention.cu is the next step
+// for speed.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -52,7 +44,6 @@ constexpr float kNegInf = -2.3819763e38f;
 constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
 constexpr int kLoadBatch = 8;   // loads in flight per thread and tensor
-constexpr int kRingTile = 64;   // ring slots per segment
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -266,47 +257,6 @@ __global__ void __launch_bounds__(kThreads) paged_decode_kernel(const PagedArgs 
   finish_rows(static_cast<T*>(a.o) + q_off, s, G, D);
 }
 
-// ---------------------------------------------------------------------------
-// ring: one contiguous ring cache in the model's layout
-// ---------------------------------------------------------------------------
-
-struct RingArgs {
-  const void* q;      // (B, Hq, D): batch stride q_sb, heads contiguous
-  const void* k;      // (B, C, Hkv, D) through strides shared by k and v,
-  const void* v;      // with a unit head-dim stride
-  void* o;            // (B, Hq, D) contiguous
-  long long pos;      // the token index just written (a host scalar)
-  int B, Hq, Hkv, C, D;
-  long long q_sb;
-  long long kv_sb, kv_sc, kv_sh;
-  float scale;
-  float cap;          // <= 0: no logit cap
-};
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads) ring_decode_kernel(const RingArgs a) {
-  const int G = a.Hq / a.Hkv, D = a.D;
-  extern __shared__ float sm[];
-  const Smem s = carve(sm, G, kRingTile, D);
-  const int hk = blockIdx.x, b = blockIdx.y;
-  start_rows(static_cast<const T*>(a.q) + b * a.q_sb + static_cast<long long>(hk) * G * D,
-             a.scale, s, G, D);
-  const long long off = b * a.kv_sb + hk * a.kv_sh;
-  const T* kbase = static_cast<const T*>(a.k) + off;
-  const T* vbase = static_cast<const T*>(a.v) + off;
-  const long long pos = a.pos, C = a.C;
-  for (int j0 = 0; j0 < a.C; j0 += kRingTile) {
-    // slot j holds token pos - ((pos - j) mod C), valid iff >= 0
-    auto valid = [pos, C, j0](int t) {
-      const long long j = j0 + t;
-      return pos - (((pos - j) % C + C) % C) >= 0;
-    };
-    attend_segment(kbase + j0 * a.kv_sc, vbase + j0 * a.kv_sc, a.kv_sc,
-                   min(kRingTile, a.C - j0), kRingTile, valid, s, G, D, a.cap);
-  }
-  finish_rows(static_cast<T*>(a.o) + (static_cast<long long>(b) * a.Hq + hk * G) * D, s, G, D);
-}
-
 template <typename Args, typename Kernel>
 int launch(Kernel kernel, const Args& a, size_t smem, cudaStream_t stream) {
   cudaError_t err =
@@ -337,24 +287,4 @@ extern "C" int paged_decode_attention_fwd(
 
 extern "C" size_t paged_decode_attention_smem_bytes(int G, int page, int D) {
   return decode_smem_bytes(G, page, D);
-}
-
-// q (B,Hq,D) with batch stride q_sb and contiguous heads; k/v (B,C,Hkv,D)
-// through the element strides they share, with a unit head-dim stride;
-// o (B,Hq,D) contiguous. dtype: 0 = fp32, 1 = bf16. Returns cudaGetLastError() after
-// the launch (0 on success).
-extern "C" int decode_attention_fwd(
-    const void* q, const void* k, const void* v, void* o, int dtype, long long pos,
-    int B, int Hq, int Hkv, int C, int D, long long q_sb,
-    long long kv_sb, long long kv_sc, long long kv_sh, float scale, float cap, void* stream) {
-  RingArgs a{q, k, v, o, pos, B, Hq, Hkv, C, D, q_sb, kv_sb, kv_sc, kv_sh, scale, cap};
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const size_t smem = decode_smem_bytes(Hq / Hkv, kRingTile, D);
-  if (dtype == 0) return launch(ring_decode_kernel<float>, a, smem, st);
-  if (dtype == 1) return launch(ring_decode_kernel<__nv_bfloat16>, a, smem, st);
-  return int(cudaErrorInvalidValue);
-}
-
-extern "C" size_t decode_attention_smem_bytes(int G, int D) {
-  return decode_smem_bytes(G, kRingTile, D);
 }

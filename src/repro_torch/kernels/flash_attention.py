@@ -1,15 +1,19 @@
-"""Flash attention (prefill): the wrapper of the Hopper kernel in
-``csrc/flash_attention.cu``, which replaces the JAX package's Pallas kernel
+"""Flash attention (prefill): the wrapper of the Hopper kernels in
+``csrc/flash_attention.cu``, which replace the JAX package's Pallas kernel
 ``repro.kernels.flash_attention.flash_attention_pallas``.
 
 :func:`flash_attention_cuda` takes CUDA tensors in the kernel layout q
 (B,Hq,S,D), k/v (B,Hkv,T,D). The model calls it through
 ``ops.flash_attention``, which takes the model layout and runs the plain
-version (``ref.flash_attention_ref``) for tensors on the CPU.
+version (``ref.flash_attention_ref``) for tensors on the CPU. The library
+picks one of three kernel instances by dtype, head dim and alignment
+(``INSTANCES``); each launch is counted under its instance in
+``flash_attention_cuda.instances``.
 """
 
 from __future__ import annotations
 
+import ctypes
 from typing import Optional
 
 import torch
@@ -18,6 +22,10 @@ from repro_torch.kernels import build
 from repro_torch.kernels.build import DTYPE_CODES
 
 MAX_HEAD_DIM = 256
+#: the kernel instances, by the code the library reports: fp32 FMA; bf16
+#: mma.sync (any head dim, unaligned rows); bf16 wgmma fed by TMA (head dim
+#: 64, 96, 112 or 128 with 16-byte aligned rows)
+INSTANCES = ("fma_f32", "mma_sync", "wgmma")
 
 
 def _check_inputs(q, k, v, out, window, logit_cap) -> None:
@@ -66,7 +74,10 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         out = torch.empty_like(q, memory_format=torch.contiguous_format)
     if b == 0 or s == 0 or hq == 0:
         return out
+    if t == 0:          # no keys: the empty sum, as the plain version gives
+        return out.zero_()
     lib = build.load_library()
+    instance = ctypes.c_int(-1)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.flash_attention_fwd(
@@ -76,11 +87,15 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             *out.stride()[:3],
             float(scale), int(bool(causal)),
             -1 if window is None else int(window),
-            0.0 if logit_cap is None else float(logit_cap), stream)
+            0.0 if logit_cap is None else float(logit_cap),
+            ctypes.byref(instance), stream)
     build.check(err, "flash_attention_fwd")
     flash_attention_cuda.launches += 1
+    flash_attention_cuda.instances[INSTANCES[instance.value]] += 1
     return out
 
 
-#: launches of the kernel in this process (set to 0 to start a count)
+#: launches of the kernel in this process (set to 0 to start a count), and
+#: the same launches by kernel instance
 flash_attention_cuda.launches = 0
+flash_attention_cuda.instances = dict.fromkeys(INSTANCES, 0)

@@ -1,25 +1,26 @@
-"""Decode attention: the wrappers of the two Hopper kernels in
-``csrc/paged_attention.cu``, which replace the JAX package's Pallas kernels
-of ``repro.kernels.paged_attention``.
+"""Decode attention: the wrappers of the two Hopper kernels that replace
+the JAX package's Pallas kernels of ``repro.kernels.paged_attention``.
 
-- :func:`paged_decode_attention_cuda` replaces
-  ``paged_decode_attention_pallas``: one query over pool pages plus the
-  device tail. The page table is a device int32 tensor that the kernel
-  reads itself, so one compiled kernel serves every table length (the
-  reference retraces per length). ``PagedKVCache.attend_fused`` calls it on
-  a CUDA device and the plain version (``ref.paged_decode_attention_ref``)
-  on the CPU.
-- :func:`decode_attention_cuda` replaces ``decode_attention_pallas``: one
-  query over a ring cache, read in the model's (B,C,Hkv,D) layout through
-  its strides, at a host-scalar ``pos``. ``ops.decode_attention`` calls it
-  on a CUDA device and ``ref.decode_attention_ref`` on the CPU.
+- :func:`paged_decode_attention_cuda` (``csrc/paged_attention.cu``)
+  replaces ``paged_decode_attention_pallas``: one query over pool pages
+  plus the device tail. The page table is a device int32 tensor that the
+  kernel reads itself, so one compiled kernel serves every table length
+  (the reference retraces per length). ``PagedKVCache.attend_fused`` calls
+  it on a CUDA device and the plain version
+  (``ref.paged_decode_attention_ref``) on the CPU.
+- :func:`decode_attention_cuda` (``csrc/decode_attention.cu``) replaces
+  ``decode_attention_pallas``: one query over a ring cache, read in the
+  model's (B,C,Hkv,D) layout through its strides, at a host-scalar ``pos``,
+  split across blocks (:func:`ring_split`) and merged in the same launch.
+  ``ops.decode_attention`` calls it on a CUDA device and
+  ``ref.decode_attention_ref`` on the CPU.
 
 Both take CUDA tensors only.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Union
+from typing import Dict, Optional, Union
 
 import torch
 
@@ -97,13 +98,52 @@ def paged_decode_attention_cuda(q: torch.Tensor, k_pages: torch.Tensor,
 paged_decode_attention_cuda.launches = 0
 
 
+#: blocks the ring kernel aims to put on each SM (a block is 4 warps)
+RING_BLOCKS_PER_SM = 8
+#: per device: one int32 ticket per (row, kv head), zero between launches
+_tickets: Dict[int, torch.Tensor] = {}
+_sm_count: Dict[int, int] = {}
+
+
+def ring_split(rows: int, c: int, n_sm: int) -> int:
+    """Slots per block of the ring kernel: a multiple of 16, small enough
+    that ``rows`` x splits blocks put about ``RING_BLOCKS_PER_SM`` on each of
+    ``n_sm`` SMs (phi3's decode, 128 rows x kv heads over C=576 on 132 SMs:
+    9 splits of 64)."""
+    want = -(-RING_BLOCKS_PER_SM * n_sm // max(rows, 1))
+    per = -(-c // want)
+    return max(16, -(-per // 16) * 16)
+
+
+def _ticket_buffer(device: torch.device, n: int) -> torch.Tensor:
+    idx = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    buf = _tickets.get(idx)
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
+        _tickets[idx] = buf
+    return buf
+
+
+def _n_sm(device: torch.device) -> int:
+    idx = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    if idx not in _sm_count:
+        _sm_count[idx] = torch.cuda.get_device_properties(
+            idx).multi_processor_count
+    return _sm_count[idx]
+
+
 def decode_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           pos: Union[int, torch.Tensor], *, scale: float,
                           logit_cap: Optional[float] = None) -> torch.Tensor:
     """q (B,Hq,D) with contiguous heads, ring caches k/v (B,C,Hkv,D) with a
     unit head-dim stride (any other strides, the same for k and v), ``pos``
     the token index just written (an int, or a 0-dim tensor read on the
-    host) → (B,Hq,D)."""
+    host) → (B,Hq,D). :func:`ring_split` sets the slots per block from the
+    shape and the card's SM count. The ticket buffer is shared by every
+    launch on a device: launches from two streams at once must not
+    overlap."""
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.device.type != "cuda" or t.device != q.device:
             raise ValueError(f"{name} must be a CUDA tensor on {q.device}, "
@@ -134,21 +174,31 @@ def decode_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         pos = int(pos)
     if logit_cap is not None and logit_cap <= 0:
         raise ValueError(f"logit_cap must be > 0 or None, got {logit_cap}")
+    split = ring_split(b * hkv, c, _n_sm(q.device))
+    n_split = -(-c // split)
+    g = hq // hkv
     lib = build.load_library()
-    smem = lib.decode_attention_smem_bytes(hq // hkv, d)
+    smem = lib.decode_attention_smem_bytes(DTYPE_CODES[q.dtype], g, d, split,
+                                           n_split)
     if smem > MAX_SMEM_BYTES:
-        raise ValueError(f"G={hq // hkv}, D={d} need {smem} B of shared "
-                         f"memory, more than {MAX_SMEM_BYTES}")
+        raise ValueError(f"G={g}, D={d}, split {split} need {smem} B of "
+                         f"shared memory, more than {MAX_SMEM_BYTES}")
     out = torch.empty((b, hq, d), dtype=q.dtype, device=q.device)
     if b == 0 or d == 0:
         return out
+    # each split's (m, l, acc) per query row; one split writes no partials
+    part = (torch.empty(b * hkv * n_split * g * (d + 2), dtype=torch.float32,
+                        device=q.device) if n_split > 1 else None)
+    tickets = _ticket_buffer(q.device, b * hkv)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.decode_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             DTYPE_CODES[q.dtype], int(pos), b, hq, hkv, c, d, q.stride(0),
             *k.stride()[:3], float(scale),
-            0.0 if logit_cap is None else float(logit_cap), stream)
+            0.0 if logit_cap is None else float(logit_cap), split,
+            None if part is None else part.data_ptr(), tickets.data_ptr(),
+            stream)
     build.check(err, "decode_attention_fwd")
     decode_attention_cuda.launches += 1
     return out

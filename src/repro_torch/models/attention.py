@@ -237,13 +237,24 @@ def attention_decode(cfg: ModelConfig, spec: LayerSpec, p: Dict,
                      ) -> Tuple[torch.Tensor, Dict]:
     """One token per row, x (B,1,D). ``pos`` is the index being written: a
     Python int or 0-dim tensor (every row at the same index), or a (B,)
-    tensor (each row at its own index). The cache is updated in place."""
+    tensor (each row at its own index). The cache is updated in place.
+    With an int ``pos`` on a CUDA tensor the attention goes through the
+    ring-decode kernel; a tensor ``pos`` keeps the plain path (the kernel
+    takes one host scalar, and reading a tensor would sync the host)."""
     b, _, _ = x.shape
     hq, hd = cfg.n_heads, cfg.head_dim
     c = cache["k"].shape[1]
     q, k, v = _project_qkv(cfg, p, x, positions)
     new_k = _ring_write_token(cache["k"], k, pos)
     new_v = _ring_write_token(cache["v"], v, pos)
+    if isinstance(pos, int) and runtime.attention_impl(x.device) == "kernel":
+        from repro_torch.kernels import ops as kops
+        # the kernel takes one dtype: q in the cache's (the same on the
+        # serving path)
+        out = kops.decode_attention(q.to(new_k.dtype), new_k, new_v, pos,
+                                    scale=_scale(cfg),
+                                    logit_cap=cfg.attn_logit_softcap)
+        return out.to(x.dtype).reshape(b, 1, hq * hd) @ p["wo"], cache
     scores = _gqa_scores(q, new_k) * _scale(cfg)        # (B,1,Hq,C)
     scores = softcap(scores, cfg.attn_logit_softcap)
     valid = _ring_valid_mask(pos, c, x.device)          # (C,) or (B,C)

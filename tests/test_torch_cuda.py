@@ -8,15 +8,19 @@ that has only PyTorch (``tests/conftest.py`` imports JAX, hence
 
 Tolerances: attention 2e-2 in bf16 and 2e-5 in fp32 (TF32 off), as
 ``TOL`` in ``tests/test_kernels.py``; the SSD scan (fp32 out) atol 3e-5 and
-rtol 1e-4, as its sweep there.
+rtol 1e-4, as its sweep there; a decode layer after its output projection
+(a sum over 3072 products) 1e-4 in fp32.
 """
 
 import pytest
 import torch
 
+from repro_torch.configs import REGISTRY
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels.flash_attention import flash_attention_cuda
+from repro_torch.models import attention as attn
+from repro_torch.models.runtime import use_attention_impl
 from repro_torch.kernels.paged_attention import (
     decode_attention_cuda,
     paged_decode_attention_cuda,
@@ -61,6 +65,60 @@ def test_flash_kernel_matches_plain_on_card(cuda_device, dtype, b, hq, hkv,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("window,cap", [(None, None), (100, None),
+                                        (None, 30.0)])
+@pytest.mark.parametrize("s", [33, 300, 512])
+@pytest.mark.parametrize("d", [64, 96, 112, 128])
+def test_flash_wgmma_instance_matches_plain_on_card(cuda_device, d, s, window,
+                                                    cap):
+    """Aligned bf16 at head dims 64-128 takes the wgmma + TMA instance, in
+    the kernel layout and in the model layout (strided views)."""
+    g = torch.Generator(device=cuda_device).manual_seed(4)
+    b, hq, hkv = 2, 8, 4
+    kw = dict(scale=d ** -0.5, window=window, logit_cap=cap)
+    q, k, v = (torch.randn(b, s, h, d, device=cuda_device, generator=g)
+               .to(torch.bfloat16) for h in (hq, hkv, hkv))
+    ref = tref.flash_attention_ref(q.transpose(1, 2), k.transpose(1, 2),
+                                   v.transpose(1, 2), **kw)
+    for qq, kk, vv in ((q.transpose(1, 2), k.transpose(1, 2),
+                        v.transpose(1, 2)),
+                       tuple(t.transpose(1, 2).contiguous()
+                             for t in (q, k, v))):
+        before = dict(flash_attention_cuda.instances)
+        out = flash_attention_cuda(qq, kk, vv, **kw)
+        torch.cuda.synchronize()
+        assert flash_attention_cuda.instances["wgmma"] == before["wgmma"] + 1
+        torch.testing.assert_close(out.float(), ref.float(), atol=2e-2,
+                                   rtol=2e-2)
+
+
+@pytest.mark.cuda
+def test_flash_instance_is_fixed_by_dtype_head_dim_and_alignment(
+        cuda_device):
+    g = torch.Generator(device=cuda_device).manual_seed(5)
+
+    def run(dtype, d, offset=0):
+        x = torch.randn(1, 2, 64 * d + offset, device=cuda_device,
+                        generator=g).to(dtype)
+        q = x[..., offset:].reshape(1, 2, 64, d)   # offset: unaligned rows
+        before = dict(flash_attention_cuda.instances)
+        out = flash_attention_cuda(q, q, q, scale=d ** -0.5)
+        ref = tref.flash_attention_ref(q, q, q, scale=d ** -0.5)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(out.float(), ref.float(),
+                                   atol=CUDA_TOL[dtype], rtol=CUDA_TOL[dtype])
+        return [k for k, n in flash_attention_cuda.instances.items()
+                if n != before[k]]
+
+    assert run(torch.bfloat16, 96) == ["wgmma"]
+    assert run(torch.bfloat16, 112) == ["wgmma"]
+    assert run(torch.bfloat16, 256) == ["mma_sync"]
+    assert run(torch.bfloat16, 80) == ["mma_sync"]
+    assert run(torch.bfloat16, 96, offset=1) == ["mma_sync"]
+    assert run(torch.float32, 96) == ["fma_f32"]
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b,hq,hkv,d,table,tail_len,cap", [
     (4, 32, 32, 96, tuple(range(16)), 19, None),  # phi3 decode
@@ -102,6 +160,8 @@ def test_paged_kernel_matches_plain_on_card(cuda_device, dtype, b, hq, hkv, d,
     (2, 4, 2, 64, 32, 200, None),
     (1, 8, 8, 100, 16, 99, None),          # ragged last tile
     (3, 6, 1, 48, 64, 20, 30.0),           # G = 6, part of the ring empty
+    (2, 4, 2, 10, 32, 7, None),            # C smaller than one split
+    (2, 4, 2, 64, 32, -1, None),           # every slot masked: mean of v
 ])
 def test_decode_kernel_matches_plain_on_card(cuda_device, dtype, b, hq, hkv,
                                              c, d, pos, cap):
@@ -121,6 +181,84 @@ def test_decode_kernel_matches_plain_on_card(cuda_device, dtype, b, hq, hkv,
     wrapped = tops.decode_attention(q[:, None], k, v, torch.tensor(pos),
                                     scale=d ** -0.5, logit_cap=cap)
     torch.testing.assert_close(wrapped[:, 0], out, atol=0, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("cap", [None, 30.0])
+@pytest.mark.parametrize("b,hkv,c,d,pos", [
+    # B * Hkv = 4 rows: splits of 16 slots (4 at C=64), at the wrap positions
+    (2, 2, 64, 32, 63), (2, 2, 64, 32, 64), (2, 2, 64, 32, 65),
+    (2, 2, 64, 32, 95), (2, 2, 64, 32, 96), (2, 2, 64, 32, 200),
+    (2, 2, 64, 32, 10),     # splits 2-4 hold no valid slot
+    (2, 2, 64, 32, -1),     # all-masked ring: the mean of v
+    (2, 2, 100, 32, 99),    # 7 splits, the last ragged (4 slots)
+    (2, 2, 20, 32, 19),     # 2 splits, the last ragged
+    (2, 2, 10, 32, 7),      # C smaller than one split
+    (4, 32, 576, 96, 520),  # phi3's decode: 9 splits of 64
+    (66, 8, 576, 32, 300),  # 528 rows: 2 splits of 288, 5 tiles each
+    (132, 8, 576, 32, 300),  # 1056 rows: one split of 9 tiles, no merge
+])
+def test_decode_kernel_splits_match_plain_on_card(cuda_device, dtype, b, hkv,
+                                                  c, d, pos, cap):
+    """The split-K cuts of tests/test_torch_kernels.py's split model, as
+    ``ring_split`` makes them on a 132-SM card; twice each, since the last
+    block of each row sets its ticket back to 0 for the next launch."""
+    g = torch.Generator(device=cuda_device).manual_seed(6)
+
+    def rnd(*shape):
+        return torch.randn(*shape, device=cuda_device, generator=g).to(dtype)
+
+    hq = 2 * hkv
+    q, k, v = rnd(b, hq, d), rnd(b, c, hkv, d), rnd(b, c, hkv, d)
+    kw = dict(scale=d ** -0.5, logit_cap=cap)
+    ref = tref.decode_attention_ref(q, k.transpose(1, 2), v.transpose(1, 2),
+                                    pos, **kw)
+    tol = CUDA_TOL[dtype]
+    for _ in range(2):
+        out = decode_attention_cuda(q, k, v, pos, **kw)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(out.float(), ref.float(), atol=tol,
+                                   rtol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_decode_kernel_matches_plain_on_a_phi3_layer(cuda_device,
+                                                              dtype):
+    """phi3's attention at full width: ``attention_decode`` with an int pos
+    launches the ring kernel once and matches the plain path after ``wo``;
+    a (B,) pos takes the plain path."""
+    cfg = REGISTRY["phi3-mini-3.8b"]
+    spec = cfg.segments[0].pattern[0]
+    g = torch.Generator(device=cuda_device).manual_seed(7)
+    p = attn.init_attn_params(cfg, spec, dtype, cuda_device, g)
+    b, max_seq = 4, 576
+    cache = attn.init_attn_cache(cfg, spec, b, max_seq, dtype, cuda_device)
+    for t in cache.values():
+        t.copy_(torch.randn(t.shape, device=cuda_device, generator=g))
+    tol = 1e-4 if dtype == torch.float32 else CUDA_TOL[dtype]
+    for pos in (300, 520, 575):
+        x = torch.randn(b, 1, cfg.d_model, device=cuda_device,
+                        generator=g).to(dtype)
+        positions = attn._rope_positions(pos, b, cuda_device)
+        before = decode_attention_cuda.launches
+        plain_cache = {n: t.clone() for n, t in cache.items()}
+        with use_attention_impl("plain"):
+            plain, _ = attn.attention_decode(cfg, spec, p, x, pos, positions,
+                                             plain_cache)
+        assert decode_attention_cuda.launches == before
+        out, _ = attn.attention_decode(cfg, spec, p, x, pos, positions, cache)
+        torch.cuda.synchronize()
+        assert decode_attention_cuda.launches == before + 1
+        for n in cache:
+            assert torch.equal(cache[n], plain_cache[n])
+        torch.testing.assert_close(out.float(), plain.float(), atol=tol,
+                                   rtol=tol)
+    rows = torch.full((b,), 575, dtype=torch.int32, device=cuda_device)
+    before = decode_attention_cuda.launches
+    attn.attention_decode(cfg, spec, p, x, rows, positions, cache)
+    assert decode_attention_cuda.launches == before
 
 
 def _ssd_inputs(device, b, s, h, p, n, bc_dtype, shared_bc, seed=3):

@@ -29,6 +29,7 @@ from repro_torch.kernels.flash_attention import flash_attention_cuda
 from repro_torch.kernels.paged_attention import (
     decode_attention_cuda,
     paged_decode_attention_cuda,
+    ring_split,
 )
 from repro_torch.kernels.ssd_scan import ssd_scan_cuda
 from repro_torch.models import runtime
@@ -255,6 +256,95 @@ def test_decode_model_layout_wrapper_matches_jax_ops():
                                           jnp.int32(pos), scale=0.25,
                                           logit_cap=20.0))
     assert decode_attention_cuda.launches == before
+
+
+def _split_k_decode(q, k, v, pos, bounds, *, scale, logit_cap=None):
+    """A plain model of the ring kernel's split-K: each split [bounds[i],
+    bounds[i + 1]) of the ring keeps its own (m, l, acc) over its slots
+    (invalid slots score NEG_INF, as in the kernel), then the merge rescales
+    by exp(m_i - m), sums and divides (l == 0 -> 1). q (B,Hq,D), k/v
+    (B,Hkv,C,D) → (B,Hq,D), fp32."""
+    b, hq, d = q.shape
+    hkv, c = k.shape[1], k.shape[2]
+    qf = q.float().reshape(b, hkv, hq // hkv, d) * scale
+    j = torch.arange(c)
+    valid = (pos - torch.remainder(pos - j, c)) >= 0
+    ms, ls, accs = [], [], []
+    for lo, hi in zip(bounds[:-1], bounds[1:]):
+        sc = torch.einsum("bkgd,bkcd->bkgc", qf, k[:, :, lo:hi].float())
+        if logit_cap is not None:
+            sc = logit_cap * torch.tanh(sc / logit_cap)
+        sc = torch.where(valid[lo:hi], sc, tref.NEG_INF)
+        m = sc.max(dim=-1).values
+        p = torch.exp(sc - m[..., None])
+        ms.append(m)
+        ls.append(p.sum(dim=-1))
+        accs.append(torch.einsum("bkgc,bkcd->bkgd", p, v[:, :, lo:hi].float()))
+    m = torch.stack(ms).max(dim=0).values
+    w = [torch.exp(mi - m) for mi in ms]
+    l = sum(wi * li for wi, li in zip(w, ls))
+    acc = sum(wi[..., None] * ai for wi, ai in zip(w, accs))
+    out = acc / torch.where(l == 0, 1.0, l)[..., None]
+    return out.reshape(b, hq, d)
+
+
+def _split_k_check(seed, b, hq, hkv, c, d, pos, bounds, cap):
+    rng = np.random.default_rng(seed)
+    q, k, v = (_randn(rng, b, hq, d), _randn(rng, b, hkv, c, d),
+               _randn(rng, b, hkv, c, d))
+    kw = dict(scale=d ** -0.5, logit_cap=cap)
+    out = _split_k_decode(*map(torch.from_numpy, (q, k, v)), pos, bounds,
+                          **kw)
+    np.testing.assert_allclose(
+        out.numpy(), tref.decode_attention_ref(
+            *map(torch.from_numpy, (q, k, v)), pos, **kw).numpy(),
+        atol=1e-5, rtol=0)
+    _close(out, jref.decode_attention_ref(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.int32(pos), **kw),
+        atol=1e-5)
+    return out, v
+
+
+@pytest.mark.parametrize("cap", [None, 30.0])
+@pytest.mark.parametrize("n_split", [1, 2, 9, 64])
+@pytest.mark.parametrize("pos", [63, 64, 65, 95, 96, 200])
+def test_split_k_merge_matches_both_refs(pos, n_split, cap):
+    """The partials-and-merge arithmetic of the ring kernel, split into 1,
+    2, 9 (ragged) and C splits, at the ring's wrap positions."""
+    bounds = np.linspace(0, 64, n_split + 1).round().astype(int).tolist()
+    _split_k_check(23, 2, 4, 2, 64, 32, pos, bounds, cap)
+
+
+@pytest.mark.parametrize("cap", [None, 30.0])
+@pytest.mark.parametrize("c,pos,split", [
+    (64, -1, 16),     # all-masked ring: uniform weights, the mean of v
+    (64, 10, 16),     # splits 2-4 hold no valid slot: weight 0 each
+    (100, 99, 32),    # ragged last split of 4 slots
+    (100, 150, 48),   # wrapped, ragged
+    (576, 520, 64),   # phi3's ring at the kernel's split (9 splits)
+])
+def test_split_k_edges_match_both_refs(c, pos, split, cap):
+    """Equal splits of ``split`` slots and a ragged last one, as the kernel
+    cuts the ring."""
+    bounds = list(range(0, c, split)) + [c]
+    out, v = _split_k_check(24, 2, 4, 2, c, 32, pos, bounds, cap)
+    if pos < 0:
+        mean = np.repeat(v.mean(axis=2), 2, axis=1)   # (B, Hq, D), G = 2
+        np.testing.assert_allclose(out.numpy(), mean, atol=1e-5)
+
+
+@pytest.mark.parametrize("rows,c,n_sm,split", [
+    (128, 576, 132, 64),    # phi3 / zamba2 decode, B=4: 9 splits
+    (16, 4096, 132, 64),    # gemma2 global layer, B=2: 64 splits
+    (4, 64, 132, 16),       # a small ring: the least split
+    (4, 10, 132, 16),       # C smaller than one split
+    (4096, 576, 132, 576),  # enough rows alone: one split
+    (128, 100, 132, 16),
+])
+def test_ring_split_is_a_multiple_of_16_sized_for_the_card(rows, c, n_sm,
+                                                           split):
+    got = ring_split(rows, c, n_sm)
+    assert got == split and got % 16 == 0
 
 
 # ---------------------------------------------------------------------------

@@ -17,11 +17,15 @@ import torch
 from repro.configs import REGISTRY as JAX_REGISTRY
 from repro.configs.base import LayerSpec as JaxLayerSpec
 from repro.configs.base import Segment as JaxSegment
+from repro.models import attention as jax_attn
 from repro.models.model import build_model as jax_build_model
 from repro_torch.configs import REGISTRY as TORCH_REGISTRY
 from repro_torch.configs.base import LayerSpec as TorchLayerSpec
 from repro_torch.configs.base import Segment as TorchSegment
 from repro_torch.convert import params_from_numpy
+from repro_torch.kernels import ops as torch_kops
+from repro_torch.models import attention as torch_attn
+from repro_torch.models import runtime as torch_runtime
 from repro_torch.models.model import build_model as torch_build_model
 
 ATOL = 1e-4
@@ -182,3 +186,94 @@ def test_greedy_tokens_match_jax(name):
         jl, jcache = jdecode(jp, jcache, jnp.asarray(jt)[:, None],
                              jnp.int32(s + i))
         tl, tcache = tm.decode_step(tp, tcache, tt[:, None], s + i)
+
+
+# ---------------------------------------------------------------------------
+# attention_decode routed through ops.decode_attention (the ring kernel)
+# ---------------------------------------------------------------------------
+
+# (config, layer of the segment's pattern, ring capacity): phi3's full
+# cache, phi3 with G = 2, gemma2's capped global layer, and gemma2's capped
+# local layer whose window-6 ring wraps every 6 tokens
+ROUTED = {"phi3": ("phi3", 0, 16), "phi3-gqa": ("phi3-gqa", 0, 16),
+          "gemma2-global": ("gemma2", 1, 16),
+          "gemma2-local": ("gemma2-windowed", 0, 6)}
+
+
+@pytest.fixture
+def routed_decode(monkeypatch):
+    """``attention_impl`` says "kernel" on the CPU too, and
+    ``ops.decode_attention`` (on the CPU: the plain ring version) counts
+    its calls."""
+    calls = []
+    real = torch_kops.decode_attention
+
+    def counting(*args, **kwargs):
+        calls.append(args[3])
+        return real(*args, **kwargs)
+
+    monkeypatch.setattr(torch_runtime, "attention_impl", lambda dev: "kernel")
+    monkeypatch.setattr(torch_kops, "decode_attention", counting)
+    return calls
+
+
+def _decode_layer(name, seed):
+    cfg_name, layer, c = ROUTED[name]
+    jc, tc = _configs(cfg_name)
+    jm = jax_build_model(jc)
+    jp = jax.tree.map(np.asarray, jm.init(jax.random.key(seed)))
+    jlayer = jax.tree.map(lambda a: a[0], jp["segments"][0][f"p{layer}"])
+    spec_j = jc.segments[0].pattern[layer]
+    spec_t = tc.segments[0].pattern[layer]
+    rng = np.random.default_rng(seed)
+    b = 2
+    cache = {n: rng.standard_normal((b, c, tc.n_kv_heads, tc.head_dim))
+             .astype(np.float32) for n in ("k", "v")}
+    assert torch_attn.attn_cache_len(tc, spec_t, 16) == c
+    return (jc, spec_j, jlayer["mixer"], tc, spec_t,
+            params_from_numpy(jlayer["mixer"], CPU), cache, rng)
+
+
+def _decode_both(name, pos, tpos, seed=11):
+    """One decode step of one attention layer, JAX at ``pos`` and the port
+    at ``tpos`` (the same index, as an int or a tensor)."""
+    jc, spec_j, jp, tc, spec_t, tp, cache, rng = _decode_layer(name, seed)
+    b = cache["k"].shape[0]
+    x = rng.standard_normal((b, 1, tc.d_model)).astype(np.float32)
+    jpos = jnp.asarray(pos, jnp.int32)
+    positions = np.broadcast_to(np.asarray(pos, np.int32).reshape(-1, 1),
+                                (b, 1)).copy()
+    jout, jcache = jax_attn.attention_decode(
+        jc, spec_j, jp, jnp.asarray(x), jpos, jnp.asarray(positions),
+        {n: jnp.asarray(a) for n, a in cache.items()})
+    tcache = {n: torch.from_numpy(a.copy()) for n, a in cache.items()}
+    tout, tcache = torch_attn.attention_decode(
+        tc, spec_t, tp, torch.from_numpy(x), tpos,
+        torch.from_numpy(positions), tcache)
+    _close(tout, jout)
+    for n in ("k", "v"):
+        _close(tcache[n], jcache[n])
+
+
+@pytest.mark.parametrize("step", [-1, 0, 1, 5, 6, 7, 11, 12, 20])
+@pytest.mark.parametrize("name", list(ROUTED))
+def test_routed_decode_matches_jax_across_the_ring_wrap(routed_decode, name,
+                                                        step):
+    """An int ``pos`` under "kernel" goes through ``ops.decode_attention``
+    on the cache just written, with the layer's scale and cap, and matches
+    JAX's ``attention_decode`` at positions around each wrap of the ring."""
+    c = ROUTED[name][2]
+    pos = c + step
+    _decode_both(name, pos, pos)
+    assert routed_decode == [pos]
+
+
+@pytest.mark.parametrize("name", list(ROUTED))
+def test_per_row_pos_keeps_the_plain_decode(routed_decode, name):
+    """A (B,) pos (rows at their own indices) and a 0-dim tensor pos keep
+    the plain path under "kernel": the kernel takes one host scalar."""
+    c = ROUTED[name][2]
+    rows = np.array([c + 3, c - 2], np.int32)
+    _decode_both(name, rows, torch.from_numpy(rows))
+    _decode_both(name, c + 1, torch.tensor(c + 1, dtype=torch.int32))
+    assert routed_decode == []
