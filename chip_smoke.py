@@ -16,8 +16,10 @@ non-zero exit):
    and fp32 (2e-5, TF32 off); the ring kernel also at the edges of its
    split-K (all slots masked, splits with no valid slot, a ragged last
    split, a ring shorter than one split); the SSD scan at zamba2's and
-   mamba2-370m's shapes (fp32 out, atol 3e-5, rtol 1e-4). Each flash case
-   logs the kernel instance it took (bf16 at head dims 64-128: wgmma).
+   mamba2-370m's shapes (fp32 out, atol 3e-5, rtol 1e-4). Each flash and
+   SSD case logs the kernel instance it took (bf16 flash at head dims
+   64-128: wgmma; bf16 B/C in the SSD scan: mma_tf32, on tensor cores),
+   the paged case its split-K cut (split, splits, blocks).
    Kernel, plain and library times at each kernel's main shape (flash also
    at head dim 112): device time (launches queued behind a spin kernel, so
    host overhead between them is not counted) and time per call.
@@ -35,7 +37,8 @@ non-zero exit):
    widths, with every page selected and then top-4 of an 8-page budget.
 5. hybrid  — zamba2-7b (68 Mamba2 and 13 attention layers) at full width
    and depth, as in phase 3: every prefill launches the SSD kernel once per
-   Mamba2 layer and flash once per attention layer, every decode step the
+   Mamba2 layer (each launch the tensor-core instance) and flash once per
+   attention layer, every decode step the
    ring kernel once per attention layer; the ``offload_kv`` round trip
    carries the conv, SSM-state (fp32) and K/V leaves. The prefill logits
    are checked on three prompts, the bf16 rule by RMS error.
@@ -44,8 +47,9 @@ non-zero exit):
    written, held against that function's output, layer by layer for a few
    steps.
 7. ssm     — mamba2-370m (48 Mamba2 layers) at full width and depth:
-   ``Model.forward`` at B=4, S=2048 in bf16, one SSD launch per layer,
-   logits held against the plain path as in phase 3.
+   ``Model.forward`` at B=4, S=2048 in bf16, one SSD launch per layer (each
+   the tensor-core instance), logits held against the plain path as in
+   phase 3.
 
 Output: the card's name and power limit, one line per phase, a JSON line
 ``{"kernels": [...]}`` and, last, ``{"ok": true, "device": {...}}``. The
@@ -67,10 +71,12 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 
 # NVIDIA H100 SXM data sheet: HBM3 rate, dense bf16 tensor-core peak (the
-# bound's operation rate), and fp32 outside the tensor cores (logged beside
-# the SSD scan's bound: its kernel runs fp32 FMA)
+# bound's operation rate), dense TF32 (the rate of the SSD scan's split
+# products) and fp32 outside the tensor cores (logged beside the SSD scan's
+# bound)
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOP_PER_S = 989e12
+TF32_FLOP_PER_S = 495e12
 FP32_FLOP_PER_S = 67e12
 
 ARCH = "phi3-mini-3.8b"
@@ -83,6 +89,7 @@ PAGE, PAGED_CONTEXT, PAGED_STEPS = 32, 531, 16     # 16 pages + 19 in the tail
 PROFILE_TOKENS = 8     # the short generate whose device time is profiled
 RING_STEPS = 4         # decode steps of the ring phase (x 13 layers)
 SSD_ATOL, SSD_RTOL = 3e-5, 1e-4   # as tests/test_kernels.py's SSD sweep
+SSD_SUB = 64           # rows per step of the SSD kernel's mma_tf32 instance
 
 FLASH = {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -319,7 +326,10 @@ def flash_instance(torch, flash_attention_cuda, q, k, v, kw) -> str:
 
 
 def kernels_paged(torch, dev, entry, randn, tols) -> None:
-    from repro_torch.kernels.paged_attention import paged_decode_attention_cuda
+    from repro_torch.kernels.paged_attention import (
+        paged_decode_attention_cuda,
+        ring_split,
+    )
     from repro_torch.kernels.ref import paged_decode_attention_ref
 
     # -- paged decode: phi3 (main path), gemma2 GQA + cap, tail-only edges
@@ -366,8 +376,13 @@ def kernels_paged(torch, dev, entry, randn, tols) -> None:
     # no single PyTorch call computes this function: library_ms is null
     entry.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                  bound_by=bound_by, library_ms=None)
+    # the split-K cut: table pages and the whole tail page, in splits
+    rows = (table.numel() + 1) * PAGE
+    split = ring_split(b * hkv, rows,
+                       torch.cuda.get_device_properties(dev).multi_processor_count)
     log("kernels", kernel="paged_decode_attention",
-        shape=f"B{b}xHq{hq}xHkv{hkv}xD{d}/{tokens}tok/bf16",
+        shape=f"B{b}xHq{hq}xHkv{hkv}xD{d}/{tokens}tok/bf16", split=split,
+        splits=-(-rows // split), blocks=b * hkv * -(-rows // split),
         ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}", bound_ms=f"{bound_ms:.4f}",
         call_ms=f"{call_ms:.4f}", plain_call_ms=f"{plain_call_ms:.4f}")
 
@@ -452,7 +467,10 @@ def ssd_bytes_and_flops(x, a, b_mat, y, state, chunk):
     """What the SSD scan must move and compute: each input read once (B and
     C once per group when broadcast to the heads with stride 0), y and the
     state written once; FLOP of the lower-triangular intra-chunk products
-    (C.B^T and its product with X), the inter-chunk term and the carry."""
+    (C.B^T and its product with X), the inter-chunk term and the carry;
+    and the TF32 work of the tensor-core instance's split products, over
+    the 64-row sub-chunks it walks each chunk in (C.B^T one pass with bf16
+    B/C, C.state^T two, (S o L).X and the carry three)."""
     bsz, s, h, p = x.shape
     n = b_mat.shape[-1]
     groups = 1 if b_mat.stride(2) == 0 else h
@@ -461,7 +479,14 @@ def ssd_bytes_and_flops(x, a, b_mat, y, state, chunk):
               + 2 * bsz * s * groups * n * b_mat.element_size())
     tri = chunk * (chunk + 1) // 2
     per_chunk = 2 * tri * n + 2 * tri * p + 2 * chunk * n * p * 2
-    return nbytes, per_chunk * bsz * h * (s // chunk)
+    chunks = bsz * h * (s // chunk)
+    split_flops = 0
+    for k0 in range(0, chunk, SSD_SUB):
+        q = min(SSD_SUB, chunk - k0)
+        tri_q = q * (q + 1) // 2
+        split_flops += (2 * tri_q * n + 3 * 2 * tri_q * p + 2 * 2 * q * n * p
+                        + 3 * 2 * q * n * p)
+    return nbytes, per_chunk * chunks, split_flops * chunks
 
 
 def kernels_ssd(torch, dev, entry, gen) -> None:
@@ -483,25 +508,33 @@ def kernels_ssd(torch, dev, entry, gen) -> None:
                         ("mamba2-370m", (BATCH, SSM_SEQ, 32, 64, 128))):
         args = inputs(*shape)
         chunk = min(256, shape[1])     # the model's chunk_size
+        before = dict(ssd_scan_cuda.instances)
         y, state = ssd_scan_cuda(*args, chunk)
         y_ref, state_ref = ssd_scan_ref(*args, chunk)
+        torch.cuda.synchronize()
+        instance = [k for k, v in ssd_scan_cuda.instances.items()
+                    if v != before[k]]
+        assert instance == ["mma_tf32"], (name, instance)
         err = max(check(torch, f"ssd/{name}/y", y, y_ref, SSD_ATOL,
                         rtol=SSD_RTOL),
                   check(torch, f"ssd/{name}/state", state, state_ref,
                         SSD_ATOL, rtol=SSD_RTOL))
-        nbytes, flops = ssd_bytes_and_flops(args[0], args[1], args[2], y,
-                                            state, chunk)
+        nbytes, flops, tc_flops = ssd_bytes_and_flops(args[0], args[1],
+                                                      args[2], y, state,
+                                                      chunk)
         bound_ms, bound_by = bound(nbytes, flops)
         ms, call_ms = timed(torch, lambda: ssd_scan_cuda(*args, chunk))
         plain_ms, plain_call_ms = timed(
             torch, lambda: ssd_scan_ref(*args, chunk), iters=5)
-        log("kernels", kernel="ssd_scan", case=name,
+        log("kernels", kernel="ssd_scan", case=name, instance=instance[0],
             shape="B{}xS{}xH{}xP{}xN{}/L{}/bc-bf16".format(*shape, chunk),
             ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}",
             bound_ms=f"{bound_ms:.4f}", bound_by=bound_by,
             mb=f"{nbytes / 1e6:.1f}", gflop=f"{flops / 1e9:.2f}",
             bytes_ms=f"{nbytes / HBM_BYTES_PER_S * 1e3:.4f}",
             bf16_rate_ms=f"{flops / BF16_FLOP_PER_S * 1e3:.4f}",
+            tc_split_gflop=f"{tc_flops / 1e9:.2f}",
+            tf32_rate_ms=f"{tc_flops / TF32_FLOP_PER_S * 1e3:.4f}",
             fp32_fma_ms=f"{flops / FP32_FLOP_PER_S * 1e3:.4f}",
             call_ms=f"{call_ms:.4f}", plain_call_ms=f"{plain_call_ms:.4f}")
         if name == "zamba2":
@@ -734,6 +767,9 @@ def serve(torch, dev, kernels, arch: str, phase: str, n_prompts: int = 1,
               "decode_attention": n_attn * (NEW_TOKENS - 1)}
     assert after_resident == expect, (after_resident, expect)
     assert counts == {k: 2 * v for k, v in expect.items()}, counts
+    # every SSD launch of the bf16 prefills took the tensor-core instance
+    assert ssd_instances() == {"mma_tf32": counts["ssd_scan"],
+                               "fma_f32": 0}, ssd_instances()
     assert offload.stats.cache_round_trips == NEW_TOKENS - 1
     stats = offload.pool_stats()
     for key in ("puts", "gets", "bytes_stored", "bytes_fetched"):
@@ -777,7 +813,9 @@ def serve(torch, dev, kernels, arch: str, phase: str, n_prompts: int = 1,
         offload_kv_max_allocated_gb=f"{off_peak / gb:.2f}",
         allocated_before_offload_kv_gb=f"{before_off / gb:.2f}",
         allocated_after_gb=f"{torch.cuda.memory_allocated() / gb:.2f}")
-    log(phase, launches=json.dumps(counts), first_tokens=res[0, :8].tolist())
+    log(phase, launches=json.dumps(counts),
+        ssd_instances=json.dumps(ssd_instances()),
+        first_tokens=res[0, :8].tolist())
 
     # where the time goes: a short generate in each mode, on the host clock
     # with the profiler off, then the device time the profiler records
@@ -793,6 +831,12 @@ def serve(torch, dev, kernels, arch: str, phase: str, n_prompts: int = 1,
         log(phase, profile=mode, top_device_ms=json.dumps(top))
     pool.close()
     return model, params, tokens
+
+
+def ssd_instances():
+    """SSD launches by kernel instance since the counts were last reset."""
+    from repro_torch.kernels.ssd_scan import ssd_scan_cuda
+    return dict(ssd_scan_cuda.instances)
 
 
 def _tree_map(fn, tree):
@@ -983,6 +1027,8 @@ def phase_ssm(torch, dev, kernels) -> None:
     kernels["ssd_scan"]["launches"] += counts["ssd_scan"]
     assert counts == {"flash_attention": 0, "paged_decode_attention": 0,
                       "decode_attention": 0, "ssd_scan": n_mamba}, counts
+    assert ssd_instances() == {"mma_tf32": n_mamba, "fma_f32": 0}, \
+        ssd_instances()
     assert logits.shape == (BATCH, SSM_SEQ, cfg.padded_vocab)
     assert not bool(torch.isnan(logits).any())
     del logits
@@ -990,7 +1036,7 @@ def phase_ssm(torch, dev, kernels) -> None:
     _, total_s = synced_s(torch, lambda: [forward(params, bf16)
                                           for _ in range(reps)])
     check_logits(torch, "ssm", forward, params)
-    log("ssm", ssd_launches=counts["ssd_scan"],
+    log("ssm", ssd_launches=counts["ssd_scan"], ssd_instance="mma_tf32",
         first_forward_ms=f"{fwd_s * 1e3:.2f}",
         forward_ms=f"{total_s / reps * 1e3:.2f}",
         tok_per_s=f"{BATCH * SSM_SEQ * reps / total_s:.1f}")

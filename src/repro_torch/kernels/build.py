@@ -5,7 +5,8 @@ Every ``csrc/*.cu`` source is compiled by ``nvcc`` for ``sm_90a`` (one
 with a plain C interface, and loaded with ``ctypes``. The build happens at
 first use, never at import, under ``build/kernels/`` at the repository
 root (listed in ``.gitignore``). The library's file name carries a hash of
-the sources and flags, so an edited source never loads a stale build.
+the sources, the headers they share and the flags, so an edited source or
+header never loads a stale build.
 """
 
 from __future__ import annotations
@@ -42,15 +43,15 @@ _SIGNATURES = {
         [_P, _P, _P, _P, _I] + [_I] * 6 + [_LL] * 12 + [_F, _I, _I, _F, _P, _P],
         _I),
     "paged_decode_attention_fwd": (
-        [_P, _P, _P, _P, _I, _I, _P, _P, _I, _P, _I] + [_I] * 5 + [_F, _F, _P],
-        _I),
-    "paged_decode_attention_smem_bytes": ([_I, _I, _I], ctypes.c_size_t),
+        [_P, _P, _P, _P, _I, _I, _P, _P, _I, _P, _I] + [_I] * 5
+        + [_F, _F, _I, _P, _P, _P], _I),
+    "paged_decode_attention_smem_bytes": ([_I] * 5, ctypes.c_size_t),
     "decode_attention_fwd": (
         [_P, _P, _P, _P, _I, _LL] + [_I] * 5 + [_LL] * 4 + [_F, _F, _I, _P, _P,
                                                            _P], _I),
     "decode_attention_smem_bytes": ([_I] * 5, ctypes.c_size_t),
     "ssd_scan_fwd": ([_P] * 6 + [_I] * 7 + [_LL] * 12 + [_P], _I),
-    "ssd_scan_smem_bytes": ([_I] * 5, ctypes.c_size_t),
+    "ssd_scan_smem_bytes": ([_I] * 6, ctypes.c_size_t),
     "hyperoffload_cuda_error_string": ([_I], ctypes.c_char_p),
 }
 
@@ -80,10 +81,12 @@ def find_nvcc() -> str:
 
 
 def library_path() -> Path:
+    """The library's path, named by a hash of every source and header under
+    ``csrc/`` (sorted) and of the flags."""
     h = hashlib.sha256()
-    for name in SOURCES:
-        h.update(name.encode())
-        h.update((CSRC / name).read_bytes())
+    for path in sorted(p for p in CSRC.iterdir() if p.suffix in (".cu", ".cuh")):
+        h.update(path.name.encode())
+        h.update(path.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"libhyperoffload_kernels_{h.hexdigest()[:16]}.so"
 

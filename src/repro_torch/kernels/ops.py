@@ -98,5 +98,5 @@ def launch_counts() -> Dict[str, int]:
 def reset_launch_counts() -> None:
     for fn in _COUNTED.values():
         fn.launches = 0
-    flash_attention_cuda.instances = dict.fromkeys(
-        flash_attention_cuda.instances, 0)
+    for fn in (flash_attention_cuda, ssd_scan_cuda):
+        fn.instances = dict.fromkeys(fn.instances, 0)

@@ -3,9 +3,10 @@ the JAX package's Pallas kernels of ``repro.kernels.paged_attention``.
 
 - :func:`paged_decode_attention_cuda` (``csrc/paged_attention.cu``)
   replaces ``paged_decode_attention_pallas``: one query over pool pages
-  plus the device tail. The page table is a device int32 tensor that the
-  kernel reads itself, so one compiled kernel serves every table length
-  (the reference retraces per length). ``PagedKVCache.attend_fused`` calls
+  plus the device tail, split across blocks and merged in the same launch.
+  The page table is a device int32 tensor that the kernel reads itself, so
+  one compiled kernel serves every table length (the reference retraces
+  per length). ``PagedKVCache.attend_fused`` calls
   it on a CUDA device and the plain version
   (``ref.paged_decode_attention_ref``) on the CPU.
 - :func:`decode_attention_cuda` (``csrc/decode_attention.cu``) replaces
@@ -15,7 +16,9 @@ the JAX package's Pallas kernels of ``repro.kernels.paged_attention``.
   ``ops.decode_attention`` calls it on a CUDA device and
   ``ref.decode_attention_ref`` on the CPU.
 
-Both take CUDA tensors only.
+Both take CUDA tensors only, and share their split-K machinery
+(``csrc/decode_split.cuh``), split sizes (:func:`ring_split`) and ticket
+buffer.
 """
 
 from __future__ import annotations
@@ -28,6 +31,45 @@ from repro_torch.kernels import build
 from repro_torch.kernels.build import DTYPE_CODES, MAX_SMEM_BYTES
 
 
+#: blocks the split-K kernels aim to put on each SM (a block is 4 warps)
+RING_BLOCKS_PER_SM = 8
+#: per device: one int32 ticket per (row, kv head), zero between launches;
+#: shared by the ring and paged kernels, which run one after the other on
+#: one stream and each leave their tickets at 0
+_tickets: Dict[int, torch.Tensor] = {}
+_sm_count: Dict[int, int] = {}
+
+
+def ring_split(rows: int, c: int, n_sm: int) -> int:
+    """Token rows per block of the split-K kernels: a multiple of 16, small
+    enough that ``rows`` x splits blocks put about ``RING_BLOCKS_PER_SM`` on
+    each of ``n_sm`` SMs (phi3's decode, 128 rows x kv heads over C=576 ring
+    slots, or over 16 pages of 32 and the tail's 32, on 132 SMs: 9 splits
+    of 64)."""
+    want = -(-RING_BLOCKS_PER_SM * n_sm // max(rows, 1))
+    per = -(-c // want)
+    return max(16, -(-per // 16) * 16)
+
+
+def _ticket_buffer(device: torch.device, n: int) -> torch.Tensor:
+    idx = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    buf = _tickets.get(idx)
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
+        _tickets[idx] = buf
+    return buf
+
+
+def _n_sm(device: torch.device) -> int:
+    idx = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    if idx not in _sm_count:
+        _sm_count[idx] = torch.cuda.get_device_properties(
+            idx).multi_processor_count
+    return _sm_count[idx]
+
+
 def paged_decode_attention_cuda(q: torch.Tensor, k_pages: torch.Tensor,
                                 v_pages: torch.Tensor,
                                 page_table: torch.Tensor,
@@ -38,7 +80,11 @@ def paged_decode_attention_cuda(q: torch.Tensor, k_pages: torch.Tensor,
     """q (B,Hq,D), pages (P,B,page,Hkv,D), table (n,) int32, tails
     (B,page,Hkv,D), all contiguous CUDA tensors → (B,Hq,D). Table entries
     must name slots in [0, P); the kernel clamps any other value into range
-    (the reference's out-of-range reads clamp too)."""
+    (the reference's out-of-range reads clamp too). The (n + 1) * page
+    token rows (the pages, then the tail) are split across blocks
+    (:func:`ring_split`) and merged in the same launch, through the ticket
+    buffer the ring kernel uses: launches from two streams at once must not
+    overlap."""
     tensors = (("q", q), ("k_pages", k_pages), ("v_pages", v_pages),
                ("k_tail", k_tail), ("v_tail", v_tail))
     for name, t in tensors + (("page_table", page_table),):
@@ -73,14 +119,23 @@ def paged_decode_attention_cuda(q: torch.Tensor, k_pages: torch.Tensor,
         raise ValueError(f"tail_len {tail_len} outside [0, {page}]")
     if logit_cap is not None and logit_cap <= 0:
         raise ValueError(f"logit_cap must be > 0 or None, got {logit_cap}")
+    tokens = (n + 1) * page
+    split = ring_split(b * hkv, tokens, _n_sm(q.device))
+    n_split = -(-tokens // split)
+    g = hq // hkv
     lib = build.load_library()
-    smem = lib.paged_decode_attention_smem_bytes(hq // hkv, page, d)
+    smem = lib.paged_decode_attention_smem_bytes(DTYPE_CODES[q.dtype], g, d,
+                                                 split, n_split)
     if smem > MAX_SMEM_BYTES:
-        raise ValueError(f"G={hq // hkv}, page={page}, D={d} need {smem} B "
-                         f"of shared memory, more than {MAX_SMEM_BYTES}")
+        raise ValueError(f"G={g}, D={d}, split {split} need {smem} B of "
+                         f"shared memory, more than {MAX_SMEM_BYTES}")
     out = torch.empty_like(q)
-    if b == 0 or hkv == 0:
+    if b == 0 or hkv == 0 or d == 0:
         return out
+    # each split's (m, l, acc) per query row; one split writes no partials
+    part = (torch.empty(b * hkv * n_split * g * (d + 2), dtype=torch.float32,
+                        device=q.device) if n_split > 1 else None)
+    tickets = _ticket_buffer(q.device, b * hkv)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.paged_decode_attention_fwd(
@@ -88,7 +143,9 @@ def paged_decode_attention_cuda(q: torch.Tensor, k_pages: torch.Tensor,
             page_table.data_ptr(), n, n_slots, k_tail.data_ptr(),
             v_tail.data_ptr(), int(tail_len), out.data_ptr(),
             DTYPE_CODES[q.dtype], b, hq, hkv, page, d, float(scale),
-            0.0 if logit_cap is None else float(logit_cap), stream)
+            0.0 if logit_cap is None else float(logit_cap), split,
+            None if part is None else part.data_ptr(), tickets.data_ptr(),
+            stream)
     build.check(err, "paged_decode_attention_fwd")
     paged_decode_attention_cuda.launches += 1
     return out
@@ -96,42 +153,6 @@ def paged_decode_attention_cuda(q: torch.Tensor, k_pages: torch.Tensor,
 
 #: launches of the kernel in this process (set to 0 to start a count)
 paged_decode_attention_cuda.launches = 0
-
-
-#: blocks the ring kernel aims to put on each SM (a block is 4 warps)
-RING_BLOCKS_PER_SM = 8
-#: per device: one int32 ticket per (row, kv head), zero between launches
-_tickets: Dict[int, torch.Tensor] = {}
-_sm_count: Dict[int, int] = {}
-
-
-def ring_split(rows: int, c: int, n_sm: int) -> int:
-    """Slots per block of the ring kernel: a multiple of 16, small enough
-    that ``rows`` x splits blocks put about ``RING_BLOCKS_PER_SM`` on each of
-    ``n_sm`` SMs (phi3's decode, 128 rows x kv heads over C=576 on 132 SMs:
-    9 splits of 64)."""
-    want = -(-RING_BLOCKS_PER_SM * n_sm // max(rows, 1))
-    per = -(-c // want)
-    return max(16, -(-per // 16) * 16)
-
-
-def _ticket_buffer(device: torch.device, n: int) -> torch.Tensor:
-    idx = device.index if device.index is not None \
-        else torch.cuda.current_device()
-    buf = _tickets.get(idx)
-    if buf is None or buf.numel() < n:
-        buf = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
-        _tickets[idx] = buf
-    return buf
-
-
-def _n_sm(device: torch.device) -> int:
-    idx = device.index if device.index is not None \
-        else torch.cuda.current_device()
-    if idx not in _sm_count:
-        _sm_count[idx] = torch.cuda.get_device_properties(
-            idx).multi_processor_count
-    return _sm_count[idx]
 
 
 def decode_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -8,6 +8,12 @@ with head stride 0). The model calls it through ``ops.ssd_scan``, which
 runs the plain version (``ref.ssd_scan_ref``) for tensors on the CPU. There
 is no backward kernel (the JAX package has none either), so inputs that
 require grad are refused.
+
+The type of B and C fixes the kernel instance, never a fallback:
+``"mma_tf32"`` for bf16 (the model's serving paths: every product on
+tensor cores, kept at fp32 accuracy by a hi/lo TF32 split) and
+``"fma_f32"`` for fp32 (CUDA-core FMA). ``ssd_scan_cuda.instances`` counts
+the launches of each.
 """
 
 from __future__ import annotations
@@ -63,7 +69,8 @@ def ssd_scan_cuda(x: torch.Tensor, a: torch.Tensor, b_mat: torch.Tensor,
     if not 0 < n <= MAX_STATE_DIM:
         raise ValueError(f"state dim N={n} outside (0, {MAX_STATE_DIM}]")
     lib = build.load_library()
-    smem = lib.ssd_scan_smem_bytes(bsz, h, p, n, chunk)
+    bc_code = DTYPE_CODES[b_mat.dtype]
+    smem = lib.ssd_scan_smem_bytes(bc_code, bsz, h, p, n, chunk)
     if smem > MAX_SMEM_BYTES:
         raise ValueError(f"chunk={chunk}, N={n} need {smem} B of shared "
                          f"memory, more than {MAX_SMEM_BYTES}")
@@ -75,13 +82,18 @@ def ssd_scan_cuda(x: torch.Tensor, a: torch.Tensor, b_mat: torch.Tensor,
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.ssd_scan_fwd(
             x.data_ptr(), a.data_ptr(), b_mat.data_ptr(), c_mat.data_ptr(),
-            y.data_ptr(), state.data_ptr(), DTYPE_CODES[b_mat.dtype],
+            y.data_ptr(), state.data_ptr(), bc_code,
             bsz, s, h, p, n, chunk, *x.stride()[:3], *a.stride(),
             *b_mat.stride()[:3], *c_mat.stride()[:3], stream)
     build.check(err, "ssd_scan_fwd")
     ssd_scan_cuda.launches += 1
+    ssd_scan_cuda.instances[INSTANCES[b_mat.dtype]] += 1
     return y, state
 
 
+#: the kernel instance each type of B/C takes
+INSTANCES = {torch.bfloat16: "mma_tf32", torch.float32: "fma_f32"}
 #: launches of the kernel in this process (set to 0 to start a count)
 ssd_scan_cuda.launches = 0
+#: launches by instance (``ops.reset_launch_counts`` sets them to 0)
+ssd_scan_cuda.instances = dict.fromkeys(INSTANCES.values(), 0)

@@ -24,7 +24,9 @@ from repro_torch.models.runtime import use_attention_impl
 from repro_torch.kernels.paged_attention import (
     decode_attention_cuda,
     paged_decode_attention_cuda,
+    ring_split,
 )
+from repro_torch.kernels.ssd_scan import INSTANCES as SSD_INSTANCES
 from repro_torch.kernels.ssd_scan import ssd_scan_cuda
 
 CUDA_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
@@ -144,6 +146,56 @@ def test_paged_kernel_matches_plain_on_card(cuda_device, dtype, b, hq, hkv, d,
     torch.cuda.synchronize()
     tol = CUDA_TOL[dtype]
     torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,hq,hkv,d,table,tail_len,cap,split", [
+    # phi3's widths, B * Hkv = 128 rows: 16 pages + tail in 9 splits of 64
+    (4, 32, 32, 96, tuple(range(16)), 19, None, 64),
+    (4, 32, 32, 96, tuple(range(10)), 19, None, 48),   # straddles pages
+    (4, 32, 32, 96, (7, 3, 3, 19, 0, 11, 2, 2, 5, 8, 1, 4, 6, 9, 10, 12,
+                     13, 14, 15, 3), 5, None, 80),    # repeated, straddles
+    (4, 16, 8, 256, (5, 1, 9, 3), 7, 50.0, 16),        # gemma2, G = 2
+    (4, 16, 8, 256, tuple(range(16)), 32, 50.0, 32),   # gemma2, full tail
+    (2, 4, 2, 32, (), 0, None, 16),      # empty table and tail: the mean
+    (2, 4, 2, 32, (3, 1), 0, None, 16),  # the tail's splits all invalid
+    (2, 4, 2, 32, (), 1, 30.0, 16),      # one valid token
+    (2, 4, 2, 32, (25, -3, 7), 10, None, 16),   # clamped into [0, 20)
+])
+def test_paged_kernel_splits_match_plain_on_card(cuda_device, dtype, b, hq,
+                                                 hkv, d, table, tail_len, cap,
+                                                 split):
+    """The paged kernel's split-K over the page table and the tail, at the
+    edges of tests/test_torch_kernels.py's split model, as ``ring_split``
+    cuts the tokens on a 132-SM card; out-of-range table entries read the
+    clamped slot. Twice each, since the last block of each row sets its
+    ticket back to 0 for the next launch."""
+    g = torch.Generator(device=cuda_device).manual_seed(8)
+    page, n_slots = 32, 20
+    assert ring_split(b * hkv, (len(table) + 1) * page, 132) == split
+
+    def rnd(*shape):
+        return torch.randn(*shape, device=cuda_device, generator=g).to(dtype)
+
+    q, kp, vp = (rnd(b, hq, d), rnd(n_slots, b, page, hkv, d),
+                 rnd(n_slots, b, page, hkv, d))
+    kt, vt = rnd(b, page, hkv, d), rnd(b, page, hkv, d)
+    t = torch.tensor(table, dtype=torch.int32, device=cuda_device)
+    kw = dict(scale=d ** -0.5, logit_cap=cap)
+    ref = tref.paged_decode_attention_ref(q, kp, vp, t.clamp(0, n_slots - 1),
+                                          kt, vt, tail_len, **kw)
+    if not table and tail_len == 0:
+        mean = vt.float().mean(dim=1).repeat_interleave(hq // hkv, dim=1)
+        torch.testing.assert_close(ref.float(), mean, atol=CUDA_TOL[dtype],
+                                   rtol=CUDA_TOL[dtype])
+    tol = CUDA_TOL[dtype]
+    for _ in range(2):
+        out = paged_decode_attention_cuda(q, kp, vp, t, kt, vt, tail_len,
+                                          **kw)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(out.float(), ref.float(), atol=tol,
+                                   rtol=tol)
 
 
 @pytest.mark.cuda
@@ -290,11 +342,18 @@ def _ssd_inputs(device, b, s, h, p, n, bc_dtype, shared_bc, seed=3):
 ])
 def test_ssd_kernel_matches_plain_on_card(cuda_device, b, s, h, p, n, chunk,
                                           bc_dtype, shared_bc):
+    """The instance is fixed by the type of B/C: bf16 (both serving
+    shapes) takes the tensor-core ``mma_tf32``, fp32 ``fma_f32``."""
     x, a, bm, cm = _ssd_inputs(cuda_device, b, s, h, p, n, bc_dtype,
                                shared_bc)
+    before = dict(ssd_scan_cuda.instances)
     y, state = ssd_scan_cuda(x, a, bm, cm, chunk)
     y_ref, state_ref = tref.ssd_scan_ref(x, a, bm, cm, chunk)
     torch.cuda.synchronize()
+    taken = [k for k, v in ssd_scan_cuda.instances.items() if v != before[k]]
+    assert taken == [SSD_INSTANCES[bc_dtype]], taken
+    if bc_dtype == torch.bfloat16:
+        assert taken == ["mma_tf32"]
     assert y.dtype == state.dtype == torch.float32
     torch.testing.assert_close(y, y_ref, atol=3e-5, rtol=1e-4)
     torch.testing.assert_close(state, state_ref, atol=3e-5, rtol=1e-4)

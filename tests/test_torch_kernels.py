@@ -10,6 +10,8 @@ in ``tests/test_kernels.py``) — the two sides sum in different orders.
 versions on the card.
 """
 
+import shutil
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -23,6 +25,7 @@ from repro.kernels.paged_attention import (
     paged_decode_attention_pallas,
 )
 from repro.kernels.ssd_scan import ssd_scan_pallas
+from repro_torch.kernels import build
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels.flash_attention import flash_attention_cuda
@@ -258,17 +261,15 @@ def test_decode_model_layout_wrapper_matches_jax_ops():
     assert decode_attention_cuda.launches == before
 
 
-def _split_k_decode(q, k, v, pos, bounds, *, scale, logit_cap=None):
-    """A plain model of the ring kernel's split-K: each split [bounds[i],
-    bounds[i + 1]) of the ring keeps its own (m, l, acc) over its slots
-    (invalid slots score NEG_INF, as in the kernel), then the merge rescales
-    by exp(m_i - m), sums and divides (l == 0 -> 1). q (B,Hq,D), k/v
-    (B,Hkv,C,D) → (B,Hq,D), fp32."""
+def _split_k_merge(q, k, v, valid, bounds, *, scale, logit_cap=None):
+    """A plain model of the decode kernels' split-K: each split [bounds[i],
+    bounds[i + 1]) of the C token rows keeps its own (m, l, acc) over its
+    rows (rows where ``valid`` is False score NEG_INF, as in the kernels),
+    then the merge rescales by exp(m_i - m), sums and divides (l == 0 ->
+    1). q (B,Hq,D), k/v (B,Hkv,C,D), valid (C,) bool → (B,Hq,D), fp32."""
     b, hq, d = q.shape
-    hkv, c = k.shape[1], k.shape[2]
+    hkv = k.shape[1]
     qf = q.float().reshape(b, hkv, hq // hkv, d) * scale
-    j = torch.arange(c)
-    valid = (pos - torch.remainder(pos - j, c)) >= 0
     ms, ls, accs = [], [], []
     for lo, hi in zip(bounds[:-1], bounds[1:]):
         sc = torch.einsum("bkgd,bkcd->bkgc", qf, k[:, :, lo:hi].float())
@@ -286,6 +287,16 @@ def _split_k_decode(q, k, v, pos, bounds, *, scale, logit_cap=None):
     acc = sum(wi[..., None] * ai for wi, ai in zip(w, accs))
     out = acc / torch.where(l == 0, 1.0, l)[..., None]
     return out.reshape(b, hq, d)
+
+
+def _split_k_decode(q, k, v, pos, bounds, *, scale, logit_cap=None):
+    """The ring kernel's split-K (:func:`_split_k_merge`) with the ring's
+    validity at ``pos``: slot j holds token pos - ((pos - j) mod C)."""
+    c = k.shape[2]
+    j = torch.arange(c)
+    valid = (pos - torch.remainder(pos - j, c)) >= 0
+    return _split_k_merge(q, k, v, valid, bounds, scale=scale,
+                          logit_cap=logit_cap)
 
 
 def _split_k_check(seed, b, hq, hkv, c, d, pos, bounds, cap):
@@ -330,6 +341,64 @@ def test_split_k_edges_match_both_refs(c, pos, split, cap):
     out, v = _split_k_check(24, 2, 4, 2, c, 32, pos, bounds, cap)
     if pos < 0:
         mean = np.repeat(v.mean(axis=2), 2, axis=1)   # (B, Hq, D), G = 2
+        np.testing.assert_allclose(out.numpy(), mean, atol=1e-5)
+
+
+def _paged_split_k(q, kp, vp, table, kt, vt, tail_len, split, *, scale,
+                   logit_cap=None):
+    """A plain model of the paged kernel's split-K: the (n + 1) * page
+    token rows are the n table pages in order (token t < n * page is row
+    t % page of slot clamp(table[t // page], 0, P - 1)), then the tail's
+    page rows, valid below ``tail_len``; splits of ``split`` tokens (the
+    last ragged) may straddle pages, and merge as the ring kernel's
+    (:func:`_split_k_merge`). Arrays as ``paged_decode_attention_ref``'s."""
+    b, hq, d = q.shape
+    page, hkv = kt.shape[1], kt.shape[2]
+    n = len(table)
+    idx = torch.tensor(table, dtype=torch.long).clamp(0, kp.shape[0] - 1)
+
+    def rows(pages, tail):   # (B, Hkv, (n + 1) * page, D)
+        flat = pages[idx].permute(1, 0, 2, 3, 4).reshape(b, n * page, hkv, d)
+        return torch.cat([flat, tail], dim=1).transpose(1, 2)
+
+    total = (n + 1) * page
+    valid = torch.arange(total) < n * page + tail_len
+    bounds = list(range(0, total, split)) + [total]
+    return _split_k_merge(q, rows(kp, kt), rows(vp, vt), valid, bounds,
+                          scale=scale, logit_cap=logit_cap)
+
+
+@pytest.mark.parametrize("g,cap", [(1, None), (2, 30.0)])
+@pytest.mark.parametrize("tail_len", [0, 1, 19, 32])
+@pytest.mark.parametrize("table", [
+    (),                                                    # tail only
+    (3,),
+    (5, 1, 1, 7, 0, 3, 3, 2, 6, 4, 7, 0, 1, 5, 2, 2),      # 16, scrambled, repeated
+])
+@pytest.mark.parametrize("split", [16, 32, 48, 64])
+def test_paged_split_k_matches_both_refs(split, table, tail_len, g, cap):
+    """The paged kernel's split-K over the page table and the tail, in
+    splits of 16-64 tokens over pages of 32 (48 straddles pages), at the
+    tail's edges and with an empty table; fp32, 1e-5."""
+    hkv, d = 2, 16
+    arrays = _paged_inputs(14, 2, g * hkv, hkv, d, 32, 8)
+    kw = dict(scale=d ** -0.5, logit_cap=cap)
+    t = [torch.from_numpy(x) for x in arrays]
+    out = _paged_split_k(t[0], t[1], t[2], table, t[3], t[4], tail_len, split,
+                         **kw)
+    ref = tref.paged_decode_attention_ref(
+        t[0], t[1], t[2], torch.tensor(table, dtype=torch.int32), t[3], t[4],
+        tail_len, **kw)
+    np.testing.assert_allclose(out.numpy(), ref.numpy(), atol=1e-5, rtol=0)
+    q, kp, vp, kt, vt = arrays
+    oracle = jref.paged_decode_attention_ref(
+        jnp.asarray(q), jnp.asarray(kp), jnp.asarray(vp),
+        jnp.asarray(table, jnp.int32), jnp.asarray(kt), jnp.asarray(vt),
+        jnp.int32(tail_len), **kw)
+    _close(out, oracle, atol=1e-5)
+    if not table and tail_len == 0:
+        # every row equally masked: uniform weights, the mean of v_tail
+        mean = np.repeat(vt.mean(axis=1), g, axis=1)
         np.testing.assert_allclose(out.numpy(), mean, atol=1e-5)
 
 
@@ -400,6 +469,139 @@ def test_ssd_model_layout_wrapper_reads_head_broadcast_b_and_c():
     _ssd_close(state, jstate)
 
 
+def _tf32_rna(x: torch.Tensor) -> torch.Tensor:
+    """fp32 → TF32 bit for bit as ``cvt.rna.tf32.f32``: round the magnitude
+    to 10 mantissa bits, to nearest, ties away from zero (the low 13 bits
+    become 0)."""
+    bits = x.float().contiguous().view(torch.int32)
+    sign = bits & -(2 ** 31)
+    mag = ((bits & 0x7FFFFFFF) + 0x1000) & 0x7FFFE000
+    return (sign | mag).view(torch.float32)
+
+
+def _split_tf32(x: torch.Tensor):
+    """The kernel's hi/lo split: hi = tf32(x), lo = tf32(x - hi)."""
+    hi = _tf32_rna(x)
+    return hi, _tf32_rna(x.float() - hi)
+
+
+def _mm3(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b as three TF32 passes, hi.hi + hi.lo + lo.hi, summed in fp32."""
+    ah, al = _split_tf32(a)
+    bh, bl = _split_tf32(b)
+    return ah @ bh + ah @ bl + al @ bh
+
+
+def _ssd_split_model(x, a, b_mat, c_mat, chunk, sub=64):
+    """A plain model of the SSD kernel's ``mma_tf32`` arithmetic, in the
+    kernel's order: each chunk is walked in sub-chunks of ``sub`` rows (64
+    in the kernel, the last one ragged), each with its own cumsum acs of
+    a. Per sub-chunk: the inter term C.stateᵀ from the state before it
+    (the state split in two, C exact), scaled by exp(acs); the score tile
+    C.Bᵀ (one pass: bf16 B/C are exact in TF32; fp32 B/C, which the card
+    runs on the ``fma_f32`` instance, split in three like every fp32
+    operand), decayed with the upper triangle selected to 0, times X in
+    three passes, source blocks of 16 rows in order; the carry
+    Xᵀ.(B∘exp(acs_last − acs)) in three passes. Model layout in,
+    (y (B,S,H,P), state (B,H,P,N)) fp32 out."""
+    bsz, s, h, p = x.shape
+    n = b_mat.shape[-1]
+    split_bc = b_mat.dtype == torch.float32
+
+    def heads(t):   # (B, S, H, .) -> (B, H, S, .) in fp32
+        return t.float().transpose(1, 2)
+
+    def mm_c(c, m):   # C . m with C exact (bf16) or split (fp32)
+        if split_bc:
+            return _mm3(c, m)
+        mh, ml = _split_tf32(m)
+        return c @ mh + c @ ml
+
+    xs, bs, cs = heads(x), heads(b_mat), heads(c_mat)
+    a_h = a.float().transpose(1, 2)                       # (B, H, S)
+    state = torch.zeros(bsz, h, p, n)
+    y = torch.empty(bsz, h, s, p)
+    for c0 in range(0, s, chunk):
+        for k0 in range(c0, c0 + chunk, sub):
+            rows = slice(k0, min(k0 + sub, c0 + chunk))
+            xc, bc, cc = (t[:, :, rows] for t in (xs, bs, cs))
+            acs = torch.cumsum(a_h[:, :, rows], dim=-1)
+            a_last = acs[..., -1:]
+            ln = acs.shape[-1]
+            idx = torch.arange(ln)
+            causal = idx[None, :] <= idx[:, None]                # s <= l
+            yc = torch.exp(acs)[..., None] * mm_c(cc, state.transpose(-1, -2))
+            scores = _mm3(cc, bc.transpose(-1, -2)) if split_bc \
+                else cc @ bc.transpose(-1, -2)
+            seg = acs[..., :, None] - acs[..., None, :]
+            lmat = torch.where(causal, scores * torch.exp(seg), 0.0)
+            for s0 in range(0, ln, 16):
+                yc = yc + _mm3(lmat[..., s0:s0 + 16], xc[:, :, s0:s0 + 16])
+            y[:, :, rows] = yc
+            bw = bc * torch.exp(a_last - acs)[..., None]
+            state = state * torch.exp(a_last)[..., None] \
+                + _mm3(xc.transpose(-1, -2), bw)
+    return y.transpose(1, 2), state
+
+
+def test_tf32_split_rounds_ties_away_and_keeps_fp32_accuracy():
+    """hi keeps 10 mantissa bits (the low 13 bits 0), ties round away from
+    zero, and hi + lo gives x back to 2⁻²⁰ relative or better."""
+    rng = np.random.default_rng(40)
+    x = torch.from_numpy(_randn(rng, 4096)
+                         * np.exp2(rng.integers(-30, 30, 4096)).astype(
+                             np.float32))
+    hi, lo = _split_tf32(x)
+    assert not bool((hi.view(torch.int32) & 0x1FFF).any())
+    assert not bool((lo.view(torch.int32) & 0x1FFF).any())
+    assert bool(((hi - x).abs() <= x.abs() * 2.0 ** -11).all())
+    err = ((hi.double() + lo.double()) - x.double()).abs()
+    assert bool((err <= x.double().abs() * 2.0 ** -20).all()), err.max()
+    ties = torch.tensor([1 + 2 ** -11, -(1 + 2 ** -11), 1 + 3 * 2 ** -11,
+                         1 + 2 ** -11 - 2 ** -23], dtype=torch.float32)
+    assert _tf32_rna(ties).tolist() == [1 + 2 ** -10, -(1 + 2 ** -10),
+                                        1 + 2 ** -9, 1.0]
+
+
+@pytest.mark.parametrize("shared_bc", [False, True])
+@pytest.mark.parametrize("bc_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b,s,h,p,n,chunk", [
+    (2, 128, 4, 32, 16, 32),     # tests/test_kernels.py's sweep
+    (1, 256, 2, 64, 32, 64),
+    (2, 64, 8, 16, 8, 16),
+    (1, 512, 2, 64, 64, 256),    # zamba2's P, N and chunk
+    (1, 512, 2, 64, 128, 256),   # mamba2-370m's N
+    (2, 200, 3, 40, 24, 100),    # ragged: sub-chunks of 64 and 36 rows
+    (1, 24, 4, 32, 32, 12),      # chunk below one 16-row tile
+])
+def test_ssd_split_model_matches_pallas_and_refs(b, s, h, p, n, chunk,
+                                                 bc_dtype, shared_bc):
+    """The kernel's split arithmetic against the port's plain version, the
+    JAX oracle and the Pallas kernel (interpret mode), atol 3e-5 / rtol
+    1e-4; B/C in bf16 (the ``mma_tf32`` instance) and fp32, one group
+    broadcast to every head (head stride 0) or one per head."""
+    x, a, bm, cm = _ssd_inputs(32, b, s, h, p, n)
+    if shared_bc:
+        bm, cm = np.repeat(bm[:, :, :1], h, 2), np.repeat(cm[:, :, :1], h, 2)
+    tb = torch.from_numpy(bm).to(bc_dtype)
+    tc = torch.from_numpy(cm).to(bc_dtype)
+    if shared_bc:
+        tb, tc = (t[:, :, :1].expand(b, s, h, n) for t in (tb, tc))
+        assert tb.stride(2) == 0
+    tx, ta = torch.from_numpy(x), torch.from_numpy(a)
+    y, state = _ssd_split_model(tx, ta, tb, tc, chunk)
+    y_ref, state_ref = tref.ssd_scan_ref(tx, ta, tb, tc, chunk)
+    _ssd_close(y, y_ref)
+    _ssd_close(state, state_ref)
+    # the same values in fp32 for JAX (bf16 widens exactly)
+    jargs = [jnp.asarray(t.float().contiguous().numpy())
+             for t in (tx, ta, tb, tc)]
+    for jy, jstate in (ssd_scan_pallas(*jargs, chunk),
+                       jref.ssd_scan_ref(*jargs, chunk)):
+        _ssd_close(y, jy)
+        _ssd_close(state, jstate)
+
+
 # ---------------------------------------------------------------------------
 # dispatch: CPU tensors take the plain version, CUDA entry points refuse them
 # ---------------------------------------------------------------------------
@@ -427,5 +629,21 @@ def test_cpu_tensors_take_the_plain_path_and_kernels_refuse_them():
     with pytest.raises(ValueError, match="CUDA tensor"):
         ssd_scan_cuda(x, torch.zeros(1, 8, 2), x, x, 8)
     counts = tops.launch_counts()
+    assert set(ssd_scan_cuda.instances) == {"mma_tf32", "fma_f32"}
     assert set(counts) == {"flash_attention", "paged_decode_attention",
                            "decode_attention", "ssd_scan"}
+
+
+def test_library_path_hashes_every_source_and_header(tmp_path, monkeypatch):
+    """An edit to a shared ``.cuh`` header names a new library, so a stale
+    build under ``build/kernels/`` is never loaded."""
+    csrc = tmp_path / "csrc"
+    shutil.copytree(build.CSRC, csrc)
+    monkeypatch.setattr(build, "CSRC", csrc)
+    headers = sorted(csrc.glob("*.cuh"))
+    assert headers, "no shared header under csrc/"
+    before = build.library_path()
+    assert build.library_path() == before
+    headers[0].write_text(headers[0].read_text() + "\n// edited\n")
+    after = build.library_path()
+    assert after != before and after.parent == before.parent
