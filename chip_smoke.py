@@ -15,7 +15,9 @@ non-zero exit):
    shapes, paged decode at phi3's and gemma2's, in bf16 (tolerance 2e-2)
    and fp32 (2e-5, TF32 off); the ring kernel also at the edges of its
    split-K (all slots masked, splits with no valid slot, a ragged last
-   split, a ring shorter than one split); the SSD scan at zamba2's and
+   split, a ring shorter than one split) and with a device (B,) pos at
+   phi3's shape (rows at 520, 37, a free slot at 0, and 575; then wrapped
+   rows); the SSD scan at zamba2's and
    mamba2-370m's shapes (fp32 out, atol 3e-5, rtol 1e-4). Each flash and
    SSD case logs the kernel instance it took (bf16 flash at head dims
    64-128: wgmma; bf16 B/C in the SSD scan: mma_tf32, on tensor cores),
@@ -32,28 +34,44 @@ non-zero exit):
    one decode step's must agree with the plain path's, in bf16 and in
    fp32. A short generate in each mode is then profiled for the device's
    busy time and its largest kernels.
-4. paged   — ``PagedKVCache.attend_fused`` (the paged-decode kernel over
+4. sched   — phase 3's phi3 weights served by ``ContinuousScheduler`` over
+   a seeded Poisson trace (8 requests, prompts 64-512, 16-64 new tokens,
+   4 slots): resident, ``kv_offload`` (pages parked on the device tier and
+   fetched in the plan's order every step), ``kv_offload`` with a 1.5-row
+   device tier (pages spill to pinned host), chunked prefill, chunked
+   ``kv_offload``. Tokens and ``SchedStats`` (but pages parked and cold
+   spills) must agree within one chunking, and prefill and decoded tokens
+   equal what the trace implies; every decode step must launch the ring
+   kernel once per layer with a (B,) device pos, every whole-prompt
+   admission flash once per layer. First-token logits (whole prompt:
+   flash vs plain; chunked: against whole-prompt fp32 plain) and one
+   decode step at mixed per-row positions are held by phase 3's logit
+   rules. Logs per mode: steps, tok/s, ms per step and decode step, TTFT
+   in steps and ms, the host ms per step of each scheduler phase, fetches
+   and plan lead, waits, pool bytes per step, peak memory.
+5. paged   — ``PagedKVCache.attend_fused`` (the paged-decode kernel over
    pool pages) against ``attend`` (the gather path) at phi3's attention
    widths, with every page selected and then top-4 of an 8-page budget.
-5. hybrid  — zamba2-7b (68 Mamba2 and 13 attention layers) at full width
+6. hybrid  — zamba2-7b (68 Mamba2 and 13 attention layers) at full width
    and depth, as in phase 3: every prefill launches the SSD kernel once per
    Mamba2 layer (each launch the tensor-core instance) and flash once per
    attention layer, every decode step the
    ring kernel once per attention layer; the ``offload_kv`` round trip
    carries the conv, SSM-state (fp32) and K/V leaves. The prefill logits
    are checked on three prompts, the bf16 rule by RMS error.
-6. ring    — ``ops.decode_attention`` (the ring-decode kernel) over the
+7. ring    — ``ops.decode_attention`` (the ring-decode kernel) over the
    caches that zamba2's ``attention_decode`` on the plain path has just
    written, held against that function's output, layer by layer for a few
    steps.
-7. ssm     — mamba2-370m (48 Mamba2 layers) at full width and depth:
+8. ssm     — mamba2-370m (48 Mamba2 layers) at full width and depth:
    ``Model.forward`` at B=4, S=2048 in bf16, one SSD launch per layer (each
    the tensor-core instance), logits held against the plain path as in
    phase 3.
 
-Output: the card's name and power limit, one line per phase, a JSON line
-``{"kernels": [...]}`` and, last, ``{"ok": true, "device": {...}}``. The
-launch counts in the kernels line are the sums over phases 3 to 7 of each
+Output: the card's name and power limit, one line per phase, the total
+wall time, a JSON line ``{"kernels": [...]}`` and, last, ``{"ok": true,
+"device": {...}}``. The
+launch counts in the kernels line are the sums over phases 3 to 8 of each
 phase's own count: every count is set to 0 just before a phase drives the
 port and read just after. Without a CUDA device, or without the port
 beside this file, it prints no result and exits with 2.
@@ -61,6 +79,7 @@ beside this file, it prints no result and exits with 2.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import re
 import subprocess
@@ -90,6 +109,13 @@ PROFILE_TOKENS = 8     # the short generate whose device time is profiled
 RING_STEPS = 4         # decode steps of the ring phase (x 13 layers)
 SSD_ATOL, SSD_RTOL = 3e-5, 1e-4   # as tests/test_kernels.py's SSD sweep
 SSD_SUB = 64           # rows per step of the SSD kernel's mma_tf32 instance
+# the sched phase: phi3-mini served by ContinuousScheduler (max_batch
+# BATCH, max_seq MAX_SEQ) over a seeded Poisson trace, whole-prompt and
+# chunked; SCHED_ROWS are the per-row positions of its checks
+SCHED_TRACE = dict(n_requests=8, rate=0.5, prompt_lens=(64, 512),
+                   prompt_quantum=64, new_tokens=(16, 64), seed=0)
+SCHED_CHUNK, SCHED_PREFILL_TOKENS = 128, 256
+SCHED_ROWS = (520, 37, 0, 575)
 
 FLASH = {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -141,14 +167,19 @@ def main() -> int:
     dev = torch.device("cuda", torch.cuda.current_device())
     kernels = {k["name"]: dict(k, launches=0)
                for k in (FLASH, PAGED, DECODE, SSD)}
+    t_start = time.perf_counter()
     phase_build()
     phase_kernels(torch, dev, kernels)
-    phase_serve(torch, dev, kernels)
+    model, params = phase_serve(torch, dev, kernels)
+    phase_sched(torch, dev, kernels, model, params)
+    del model, params
+    torch.cuda.empty_cache()
     phase_paged(torch, dev, kernels)
     phase_hybrid(torch, dev, kernels)
     phase_ssm(torch, dev, kernels)
     for k in kernels.values():
         assert k["launches"] > 0, f"{k['name']} never launched on a path"
+    log("total", seconds=f"{time.perf_counter() - t_start:.2f}")
     print(json.dumps({"kernels": list(kernels.values())}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -461,6 +492,53 @@ def kernels_decode(torch, dev, entry, randn, tols) -> None:
         plain_ms=f"{plain_ms:.4f}", library_ms=f"{library_ms:.4f}",
         bound_ms=f"{bound_ms:.4f}", call_ms=f"{call_ms:.4f}",
         plain_call_ms=f"{plain_call_ms:.4f}")
+    kernels_decode_rows(torch, dev, entry, randn, tols, ms)
+
+
+def kernels_decode_rows(torch, dev, entry, randn, tols, scalar_ms) -> None:
+    """The ring kernel with a device (B,) pos, each row at its own position
+    (the continuous scheduler's decode): phi3's shape with rows at C - 1,
+    mid-ring and a free slot decoded at 0, then with wrapped rows; bf16 and
+    fp32 against the plain version at the same (B,) pos. The first case's
+    device time is logged beside the scalar path's (``scalar_ms``)."""
+    from repro_torch.kernels.paged_attention import decode_attention_cuda
+    from repro_torch.kernels.ref import decode_attention_ref
+
+    b, hq, hkv, c, d = BATCH, 32, 32, MAX_SEQ, 96
+    scale = d ** -0.5
+    for name, rows in (("per-row", SCHED_ROWS),
+                       ("per-row-wrapped", (600, 37, 0, 2 * c - 1))):
+        pos = torch.tensor(rows, dtype=torch.int32, device=dev)
+        for dtype, tol in tols.items():
+            q = randn(b, hq, d, dtype=dtype)
+            k, v = randn(b, c, hkv, d, dtype=dtype), randn(b, c, hkv, d,
+                                                          dtype=dtype)
+            err = check(torch, f"decode/phi3-{name}{list(rows)}/"
+                        f"{str(dtype)[6:]}",
+                        decode_attention_cuda(q, k, v, pos, scale=scale),
+                        decode_attention_ref(q, k.transpose(1, 2),
+                                             v.transpose(1, 2), pos,
+                                             scale=scale), tol)
+            if name == "per-row" and dtype == torch.bfloat16:
+                main = (q, k, v, err)
+    q, k, v, err = main
+    pos = torch.tensor(SCHED_ROWS, dtype=torch.int32, device=dev)
+    kt, vt = k.transpose(1, 2), v.transpose(1, 2)
+    slots = sum(min(r + 1, c) for r in SCHED_ROWS)   # slots holding a token
+    nbytes = (2 * q.numel() + 2 * slots * hkv * d) * q.element_size()
+    bound_ms, bound_by = bound(nbytes, 4 * hq * slots * d)
+    ms, call_ms = timed(torch, lambda: decode_attention_cuda(q, k, v, pos,
+                                                             scale=scale))
+    plain_ms, plain_call_ms = timed(torch, lambda: decode_attention_ref(
+        q, kt, vt, pos, scale=scale))
+    entry.update(per_row_ms=ms, per_row_plain_ms=plain_ms,
+                 per_row_bound_ms=bound_ms, per_row_max_abs_err=err)
+    log("kernels", kernel="decode_attention", pos="per-row",
+        shape=f"B{b}xHq{hq}xHkv{hkv}xC{c}xD{d}/pos{list(SCHED_ROWS)}/bf16",
+        valid_slots=slots, ms=f"{ms:.4f}", scalar_pos_ms=f"{scalar_ms:.4f}",
+        plain_ms=f"{plain_ms:.4f}", bound_ms=f"{bound_ms:.4f}",
+        bound_by=bound_by, call_ms=f"{call_ms:.4f}",
+        plain_call_ms=f"{plain_call_ms:.4f}")
 
 
 def ssd_bytes_and_flops(x, a, b_mat, y, state, chunk):
@@ -559,9 +637,11 @@ def synced_s(torch, fn):
     return out, time.perf_counter() - t0
 
 
-def phase_serve(torch, dev, kernels) -> None:
-    serve(torch, dev, kernels, ARCH, "serve")
+def phase_serve(torch, dev, kernels):
+    """Returns phi3's (model, params) for the sched phase."""
+    model, params, _ = serve(torch, dev, kernels, ARCH, "serve")
     torch.cuda.empty_cache()
+    return model, params
 
 
 def check_logits(torch, phase: str, run, params, n_prompts: int = 1,
@@ -859,7 +939,333 @@ def _leaves(tree):
 
 
 # ---------------------------------------------------------------------------
-# 4. paged: fused decode over pool pages
+# 4. sched: phi3-mini through the continuous scheduler
+# ---------------------------------------------------------------------------
+
+#: (mode, SchedulerConfig fields); "-spill" runs on a device tier of 1.5
+#: worst-case rows, so parked pages spill to the pinned host tier
+SCHED_MODES = (
+    ("resident", {}),
+    ("kv_offload", dict(kv_offload=True)),
+    ("kv_offload-spill", dict(kv_offload=True)),
+    ("chunked", dict(chunk_size=SCHED_CHUNK,
+                     prefill_tokens=SCHED_PREFILL_TOKENS)),
+    ("chunked-kv_offload", dict(chunk_size=SCHED_CHUNK,
+                                prefill_tokens=SCHED_PREFILL_TOKENS,
+                                kv_offload=True)),
+)
+
+
+def phase_sched(torch, dev, kernels, model, params) -> None:
+    """``ContinuousScheduler`` serving phi3-mini at full width and depth
+    (bf16, the serve phase's weights) over a seeded Poisson trace, in each
+    of ``SCHED_MODES``. Holds: the same tokens and ``SchedStats`` (but
+    pages parked and cold spills) for resident and ``kv_offload`` at one
+    chunking; prefill and decoded tokens equal to what the trace implies;
+    each decode step launching the ring kernel once per layer with a (B,)
+    device pos; each whole-prompt admission launching flash once per
+    layer; first-token logits and one mixed-pos decode step's logits by
+    the logit rules of the serve phase."""
+    from repro_torch.offload import worst_case_page_bytes
+    from repro_torch.sched import poisson_trace
+
+    cfg = model.cfg
+    n_attn, _ = mixers(cfg)
+    trace_kw = dict(SCHED_TRACE, vocab_size=cfg.vocab_size)
+    trace = poisson_trace(**trace_kw)
+    row = worst_case_page_bytes(model.cache_specs(1, MAX_SEQ, torch.bfloat16))
+    log("sched", arch=cfg.name, requests=len(trace), max_batch=BATCH,
+        max_seq=MAX_SEQ, trace=json.dumps(SCHED_TRACE),
+        prompt_lens=[r.prompt_len for r in trace],
+        new_tokens=[r.max_new_tokens for r in trace],
+        arrivals=[round(r.arrival, 3) for r in trace], chunk=SCHED_CHUNK,
+        prefill_tokens_per_step=SCHED_PREFILL_TOKENS, row_bytes=row)
+    runs = {mode: sched_run(torch, dev, kernels, model, params, trace_kw,
+                            mode, kw, row, n_attn)
+            for mode, kw in SCHED_MODES}
+
+    def same_work(stats):
+        return {k: v for k, v in stats.items()
+                if k not in ("pages_parked", "cold_spills")}
+
+    for mode, run in runs.items():
+        st = run["stats"]
+        assert st["prefill_tokens"] == sum(r.prompt_len for r in trace), mode
+        assert st["decoded_tokens"] == sum(r.max_new_tokens - 1
+                                           for r in trace), mode
+        assert st["joins"] == st["retires"] == len(trace), (mode, st)
+    for a, b in (("resident", "kv_offload"), ("resident", "kv_offload-spill"),
+                 ("chunked", "chunked-kv_offload")):
+        assert runs[a]["tokens"] == runs[b]["tokens"], \
+            f"{b} tokens differ from {a}"
+        assert same_work(runs[a]["stats"]) == same_work(runs[b]["stats"]), \
+            (a, b, runs[a]["stats"], runs[b]["stats"])
+    assert runs["kv_offload-spill"]["stats"]["cold_spills"] > 0
+    whole, chunked = runs["resident"]["tokens"], runs["chunked"]["tokens"]
+    matching = sum(int(x == y) for seed in whole
+                   for x, y in zip(whole[seed], chunked[seed]))
+    log("sched", check="tokens, whole-prompt vs chunked (reported)",
+        matching=matching, of=sum(len(v) for v in whole.values()),
+        identical_requests=sum(whole[s] == chunked[s] for s in whole),
+        first_tokens_equal=sum(whole[s][0] == chunked[s][0] for s in whole))
+    check_sched_logits(torch, model, params, trace)
+    check_mixed_decode_logits(torch, model, params, n_attn)
+
+
+def sched_run(torch, dev, kernels, model, params, trace_kw, mode, kw, row,
+              n_attn):
+    """One ``ContinuousScheduler.run`` of the trace in one mode; returns
+    its tokens (by request seed) and ``SchedStats``. Every entry point the
+    scheduler calls is wrapped to count its kernel launches per call (no
+    launch, no sync of its own); the step loop is timed on the host
+    clock."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.kernels.paged_attention import decode_attention_cuda
+    from repro_torch.obs import Tracer
+    from repro_torch.pool import default_pool
+    from repro_torch.sched import (
+        ContinuousScheduler, SchedulerConfig, poisson_trace,
+    )
+
+    pool = None
+    if kw.get("kv_offload"):
+        caps = ({"device_capacity": int(1.5 * row)}
+                if mode.endswith("spill") else {})
+        pool = default_pool(device=dev, **caps)
+    # the scheduler's own spans (step phases, row park/restore, prefetch
+    # issue) give where a step's host time goes
+    tracer = Tracer()
+    sched = ContinuousScheduler(model, params, SchedulerConfig(
+        max_batch=BATCH, max_seq=MAX_SEQ, cache_dtype=torch.bfloat16, **kw),
+        pool=pool, tracer=tracer)
+    calls = {"decode": 0, "prefill": 0, "chunk": 0}
+
+    def counted(name, fn, flash, ring):
+        def call(*args):
+            if name == "decode":
+                pos = args[3]
+                assert isinstance(pos, torch.Tensor) and pos.device == dev \
+                    and tuple(pos.shape) == (BATCH,), pos
+            f0, r0 = flash_attention_cuda.launches, decode_attention_cuda.launches
+            out = fn(*args)
+            got = (flash_attention_cuda.launches - f0,
+                   decode_attention_cuda.launches - r0)
+            assert got == (flash, ring), (mode, name, got)
+            calls[name] += 1
+            return out
+        return call
+
+    sched._decode = counted("decode", sched._decode, 0, n_attn)
+    sched._prefill = counted("prefill", sched._prefill, n_attn, 0)
+    if kw.get("chunk_size"):
+        sched._chunk_prefill = counted("chunk", sched._chunk_prefill, 0, 0)
+    decode_s, steps = [], []   # steps: (virtual now at start, t0, t1)
+    decode_active, step = sched._decode_active, sched.step
+
+    def timed_decode():
+        t0 = time.perf_counter()
+        out = decode_active()      # ends reading the step's tokens: synced
+        if out:
+            decode_s.append(time.perf_counter() - t0)
+        return out
+
+    def timed_step():
+        now, t0 = sched.now, time.perf_counter()
+        out = step()
+        steps.append((now, t0, time.perf_counter()))
+        return out
+
+    sched._decode_active, sched.step = timed_decode, timed_step
+    trace = poisson_trace(**trace_kw)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    # the main path: counts set to 0 just before, read just after
+    ops.reset_launch_counts()
+    out, wall = synced_s(torch, lambda: sched.run(trace))
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    for name, n in counts.items():
+        kernels[name]["launches"] += n
+    st = dataclasses.asdict(sched.stats)
+    assert calls["decode"] == len(decode_s) > 0
+    assert calls["prefill"] == (0 if kw.get("chunk_size") else len(trace))
+    assert calls["chunk"] == st["prefill_chunks"]
+    assert counts == {"flash_attention": n_attn * calls["prefill"],
+                      "paged_decode_attention": 0,
+                      "decode_attention": n_attn * calls["decode"],
+                      "ssd_scan": 0}, (mode, counts, calls)
+    tokens = {r.seed: out[r.req_id].tolist() for r in trace}
+    for r in trace:
+        assert len(tokens[r.seed]) == r.max_new_tokens
+        assert all(0 <= t < model.cfg.vocab_size for t in tokens[r.seed])
+    # TTFT: from the start of the first step at or after the arrival to the
+    # end of the step that emitted the first token
+    ttft_steps, ttft_ms = [], []
+    for r in trace:
+        state = sched.finished[r.req_id]
+        ttft_steps.append(state.t_first_token - r.arrival)
+        t0 = next(t for now, t, _ in steps if now >= r.arrival)
+        t1 = next(t for now, _, t in steps if now == state.t_first_token)
+        ttft_ms.append((t1 - t0) * 1e3)
+    snap = sched.pool_stats()
+    pf = sched.prefetch_stats() or {}
+    emitted = sum(len(v) for v in tokens.values())
+    moved = snap["bytes_stored"] + snap["bytes_fetched"]
+    log("sched", mode=mode, steps=st["steps"], tokens=emitted,
+        wall_s=f"{wall:.3f}", tok_per_s=f"{emitted / wall:.1f}",
+        decode_steps=len(decode_s),
+        decode_ms_per_step=f"{sum(decode_s) / len(decode_s) * 1e3:.2f}",
+        decode_ms_p50=f"{sorted(decode_s)[len(decode_s) // 2] * 1e3:.2f}",
+        step_ms=f"{wall / st['steps'] * 1e3:.2f}",
+        ttft_steps_mean=f"{sum(ttft_steps) / len(ttft_steps):.3f}",
+        ttft_steps_max=f"{max(ttft_steps):.3f}",
+        ttft_ms_mean=f"{sum(ttft_ms) / len(ttft_ms):.2f}",
+        ttft_ms_max=f"{max(ttft_ms):.2f}")
+    log("sched", mode=mode, stats=json.dumps(st),
+        launches=json.dumps(counts), prefill_calls=calls["prefill"],
+        chunk_calls=calls["chunk"],
+        fetches_issued=pf.get("fetches_issued", 0),
+        mean_plan_lead=pf.get("mean_plan_lead", "n/a"),
+        plan_hw=sched.cfg.hw.name,
+        waits_overlapped=snap["transfer"]["waits_overlapped"],
+        waits_blocked=snap["transfer"]["waits_blocked"],
+        blocked_ms=f"{snap['transfer']['blocked_s'] * 1e3:.2f}",
+        pool_bytes_per_step=moved // st["steps"],
+        evictions=snap["evictions"],
+        host_entries_peak_bytes=snap["tier/host"]["peak"],
+        max_allocated_gb=f"{peak / 1e9:.2f}")
+    spans = {}
+    for e in tracer.events():
+        if e.cat == "sched" and e.ph == "X":
+            spans[e.name] = spans.get(e.name, 0.0) + e.dur
+    log("sched", mode=mode, host_ms_per_step=json.dumps(
+        {k: round(v / st["steps"] * 1e3, 2) for k, v in sorted(spans.items())}))
+    sched.close()
+    if pool is not None:
+        assert pool.snapshot()["reserved"] == 0
+        pool.close()
+    del sched
+    torch.cuda.empty_cache()
+    return {"tokens": tokens, "stats": st}
+
+
+def check_sched_logits(torch, model, params, trace) -> None:
+    """Each request's first-token logits. Whole prompt (B=1): flash against
+    the plain path by :func:`check_logits`. Chunked (``SCHED_CHUNK``, the
+    two-segment plain attention): fp32 within 1e-4 of the fp32 whole-prompt
+    plain path, and bf16 no further from it than the bf16 plain path plus
+    2e-2 (the maximum error)."""
+    from repro_torch.models.runtime import use_attention_impl
+
+    dev = next(_leaves(params)).device
+
+    def first(weights, dtype, i, chunk=None):
+        toks = torch.from_numpy(trace[i].tokens)[None].to(dev)
+        s = toks.shape[1]
+        cache = model.init_cache(1, MAX_SEQ, dtype, dev)
+        with torch.inference_mode():
+            if chunk is None:
+                return model.prefill(weights, {"tokens": toks}, cache)[0][:, 0]
+            for off in range(0, s, chunk):
+                valid = min(chunk, s - off)
+                t = torch.zeros(1, chunk, dtype=torch.int32, device=dev)
+                t[:, :valid] = toks[:, off:off + valid]
+                logits, cache = model.prefill_chunk(weights, {"tokens": t},
+                                                    off, valid, cache)
+            return logits[:, 0]
+
+    check_logits(torch, "sched", lambda w, d, i: first(w, d, i), params,
+                 n_prompts=len(trace))
+    params32 = _tree_map(lambda t: t.float(), params)
+    worst32 = 0.0
+    for i in range(len(trace)):
+        with use_attention_impl("plain"):
+            p32 = first(params32, torch.float32, i)
+            p16 = first(params, torch.bfloat16, i)
+        c32 = first(params32, torch.float32, i, SCHED_CHUNK)
+        c16 = first(params, torch.bfloat16, i, SCHED_CHUNK)
+        err32 = (c32 - p32).abs().max().item()
+        worst32 = max(worst32, err32)
+        e_chunk = (c16.float() - p32).abs().max().item()
+        e_plain = (p16.float() - p32).abs().max().item()
+        log("sched", check="chunked first-token logits against whole-prompt "
+            "fp32 plain", prompt=i, prompt_len=trace[i].prompt_len,
+            fp32_max_abs_err=f"{err32:.3e}", fp32_tol=1e-4,
+            bf16_chunked_max_abs_err=f"{e_chunk:.3e}",
+            bf16_plain_max_abs_err=f"{e_plain:.3e}",
+            tol=f"plain+2e-2={e_plain + 2e-2:.3e}",
+            same_argmax=bool(c16.argmax(-1) == p16.argmax(-1)))
+        assert bool(torch.isfinite(c32).all()) and bool(
+            torch.isfinite(c16).all())
+        assert torch.allclose(c32, p32, atol=1e-4, rtol=1e-4), (i, err32)
+        assert e_chunk <= e_plain + 2e-2, (i, e_chunk, e_plain)
+    del params32
+    torch.cuda.empty_cache()
+
+
+def check_mixed_decode_logits(torch, model, params, n_attn) -> None:
+    """One decode step at the per-row positions ``SCHED_ROWS`` (a free slot
+    at 0 among them), from a cache whose rows a plain prefill filled one
+    request at a time, as the scheduler fills its slots: the ring kernel
+    (one launch per layer) against the plain decode, by
+    :func:`check_decode_logits`'s rules."""
+    from repro_torch.kernels.paged_attention import decode_attention_cuda
+    from repro_torch.models.runtime import use_attention_impl
+
+    dev = next(_leaves(params)).device
+    vocab = model.cfg.vocab_size
+    gen = torch.Generator(device=dev).manual_seed(5)
+    prompts = [torch.randint(0, vocab, (1, r), generator=gen, device=dev,
+                             dtype=torch.int32) if r else None
+               for r in SCHED_ROWS]
+    tok = torch.randint(0, vocab, (BATCH, 1), generator=gen, device=dev,
+                        dtype=torch.int32)
+    pos = torch.tensor(SCHED_ROWS, dtype=torch.int32, device=dev)
+
+    def step(weights, dtype):
+        cache = model.init_cache(BATCH, MAX_SEQ, dtype, dev)
+        with torch.inference_mode():
+            with use_attention_impl("plain"):
+                for i, p in enumerate(prompts):
+                    if p is None:
+                        continue
+                    row = model.init_cache(1, MAX_SEQ, dtype, dev)
+                    model.prefill(weights, {"tokens": p}, row)
+                    for big, r in zip(_leaves(cache), _leaves(row)):
+                        big[:, i] = r[:, 0]
+            twin = _tree_map(lambda t: t.clone(), cache)
+            before = decode_attention_cuda.launches
+            kernel, _ = model.decode_step(weights, cache, tok, pos)
+            torch.cuda.synchronize()
+            assert decode_attention_cuda.launches == before + n_attn
+            with use_attention_impl("plain"):
+                plain, _ = model.decode_step(weights, twin, tok, pos)
+        del cache, twin
+        return kernel.float(), plain.float()
+
+    kernel16, plain16 = step(params, torch.bfloat16)
+    params32 = _tree_map(lambda t: t.float(), params)
+    kernel32, plain32 = step(params32, torch.float32)
+    del params32
+    err32 = (kernel32 - plain32).abs().max().item()
+    assert bool(torch.isfinite(kernel16).all())
+    assert bool(torch.isfinite(kernel32).all())
+    rms_kernel = (kernel16 - plain32).pow(2).mean().sqrt().item()
+    rms_plain = (plain16 - plain32).pow(2).mean().sqrt().item()
+    log("sched", check="mixed-pos decode-step logits kernel vs plain",
+        pos=list(SCHED_ROWS), fp32_max_abs_err=f"{err32:.3e}", fp32_tol=1e-4,
+        bf16_kernel_rms=f"{rms_kernel:.3e}", bf16_plain_rms=f"{rms_plain:.3e}",
+        rms_tol=f"1.05*plain={1.05 * rms_plain:.3e}",
+        bf16_kernel_vs_plain_max_abs=f"{(kernel16 - plain16).abs().max().item():.3e}")
+    assert torch.allclose(kernel32, plain32, atol=1e-4, rtol=1e-4), err32
+    assert rms_kernel <= 1.05 * rms_plain, (rms_kernel, rms_plain)
+    del kernel16, plain16, kernel32, plain32
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# 5. paged: fused decode over pool pages
 # ---------------------------------------------------------------------------
 
 
@@ -924,7 +1330,7 @@ def phase_paged(torch, dev, kernels) -> None:
 
 
 # ---------------------------------------------------------------------------
-# 5. hybrid: zamba2-7b, resident and offload_kv; 6. ring decode on its caches
+# 6. hybrid: zamba2-7b, resident and offload_kv; 7. ring decode on its caches
 # ---------------------------------------------------------------------------
 
 
@@ -992,7 +1398,7 @@ def phase_ring(torch, dev, kernels, model, params, tokens) -> None:
 
 
 # ---------------------------------------------------------------------------
-# 7. ssm: mamba2-370m forward
+# 8. ssm: mamba2-370m forward
 # ---------------------------------------------------------------------------
 
 

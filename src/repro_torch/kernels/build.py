@@ -47,8 +47,8 @@ _SIGNATURES = {
         + [_F, _F, _I, _P, _P, _P], _I),
     "paged_decode_attention_smem_bytes": ([_I] * 5, ctypes.c_size_t),
     "decode_attention_fwd": (
-        [_P, _P, _P, _P, _I, _LL] + [_I] * 5 + [_LL] * 4 + [_F, _F, _I, _P, _P,
-                                                           _P], _I),
+        [_P, _P, _P, _P, _I, _LL, _P] + [_I] * 5 + [_LL] * 4
+        + [_F, _F, _I, _P, _P, _P], _I),
     "decode_attention_smem_bytes": ([_I] * 5, ctypes.c_size_t),
     "ssd_scan_fwd": ([_P] * 6 + [_I] * 7 + [_LL] * 12 + [_P], _I),
     "ssd_scan_smem_bytes": ([_I] * 6, ctypes.c_size_t),

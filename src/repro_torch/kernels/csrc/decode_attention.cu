@@ -8,8 +8,14 @@
 // model's (B,C,Hkv,D) layout through its strides: slot j holds token
 // pos - ((pos - j) mod C) and is valid iff that token is >= 0. The TPU
 // wrapper builds that mask beside the kernel; here each block computes it
-// per slot from the host-scalar pos, with the floor mod written
-// ((pos - j) % C + C) % C, since C++'s % truncates toward zero. At phi3's
+// per slot from its row's pos, with the floor mod written
+// ((pos - j) % C + C) % C, since C++'s % truncates toward zero. pos is
+// one host scalar for every row (a uniform batch), or a device int32 (B,)
+// array that each block reads at its own row (continuous batching, where
+// every row sits at its own position): the grid and the split stay sized
+// by C, and a split that holds no valid slot of its row merges with
+// weight 0 (decode_split.cuh), so rows at different positions share one
+// launch and the host never reads the positions. At phi3's
 // decode (B=4, Hkv=32, C=576, D=96, bf16, 521 slots holding a token) it
 // reads ~26 MB, ~8 us at 3.35 TB/s; 9 splits of 64 slots, 1152 blocks.
 
@@ -21,7 +27,8 @@ struct RingArgs {
   SplitArgs s;        // C = the ring's slots
   const void* k;      // (B, C, Hkv, D) through strides shared by k and v,
   const void* v;      // with a unit head-dim stride
-  long long pos;      // the token index just written (a host scalar)
+  long long pos;      // the token index just written (a host scalar) ...
+  const int* pos_rows;  // ... or, when not null, one per row on the device
   long long kv_sb, kv_sc, kv_sh;
 };
 
@@ -44,8 +51,9 @@ struct RingRows {
 template <typename T>
 __global__ void __launch_bounds__(kThreads) ring_decode_kernel(const RingArgs a) {
   const long long off = blockIdx.z * a.kv_sb + blockIdx.y * a.kv_sh;
+  const long long pos = a.pos_rows ? static_cast<long long>(a.pos_rows[blockIdx.z]) : a.pos;
   const RingRows<T> src{static_cast<const T*>(a.k) + off, static_cast<const T*>(a.v) + off,
-                        a.kv_sc, a.pos, a.s.C};
+                        a.kv_sc, pos, a.s.C};
   split_decode<T>(a.s, src);
 }
 
@@ -53,13 +61,14 @@ __global__ void __launch_bounds__(kThreads) ring_decode_kernel(const RingArgs a)
 
 // q (B,Hq,D) with batch stride q_sb and contiguous heads; k/v (B,C,Hkv,D)
 // through the element strides they share, with a unit head-dim stride;
-// o (B,Hq,D) contiguous; `split` slots per block (a multiple of 16);
+// o (B,Hq,D) contiguous; pos_rows null (every row at `pos`) or B int32
+// positions on the device; `split` slots per block (a multiple of 16);
 // part: B*Hkv*ceil(C/split)*(Hq/Hkv)*(D+2) fp32 scratch (unused with one
 // split); tickets: B*Hkv int32, zero before the launch and zero after it.
 // dtype: 0 = fp32, 1 = bf16. Returns cudaGetLastError() after the launch.
 extern "C" int decode_attention_fwd(
     const void* q, const void* k, const void* v, void* o, int dtype, long long pos,
-    int B, int Hq, int Hkv, int C, int D, long long q_sb,
+    const void* pos_rows, int B, int Hq, int Hkv, int C, int D, long long q_sb,
     long long kv_sb, long long kv_sc, long long kv_sh, float scale, float cap,
     int split, void* part, void* tickets, void* stream) {
   if (split <= 0 || split % 16 != 0) return int(cudaErrorInvalidValue);
@@ -68,7 +77,7 @@ extern "C" int decode_attention_fwd(
                             (kv_sb | kv_sc | kv_sh) % E == 0;
   RingArgs a{{q, o, static_cast<float*>(part), static_cast<int*>(tickets), B, Hq, Hkv, C, D,
               q_sb, scale, cap, split, 0, 0, 1, 0},
-             k, v, pos, kv_sb, kv_sc, kv_sh};
+             k, v, pos, static_cast<const int*>(pos_rows), kv_sb, kv_sc, kv_sh};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
     const size_t smem = plan_args<float>(&a.s, rows_aligned);

@@ -4,7 +4,8 @@
 - :func:`flash_attention`: causal prefill attention, q (B,S,Hq,D) over k/v
   (B,T,Hkv,D);
 - :func:`decode_attention`: one query per row over a ring cache, q
-  (B,1,Hq,D) over k/v (B,C,Hkv,D) at a scalar ``pos``;
+  (B,1,Hq,D) over k/v (B,C,Hkv,D) at one ``pos`` for every row or one per
+  row;
 - :func:`ssd_scan`: the Mamba2 SSD chunked scan, returning y and the final
   state.
 
@@ -67,8 +68,10 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      pos: Union[int, torch.Tensor], *, scale: float,
                      logit_cap: Optional[float] = None) -> torch.Tensor:
     """Ring-cache decode attention: q (B,1,Hq,D), cache (B,C,Hkv,D) →
-    (B,1,Hq,D). ``pos`` is the token index just written, one for every
-    row. On CUDA the kernel reads the cache in place through its strides."""
+    (B,1,Hq,D). ``pos`` is the token index just written: an int or 0-dim
+    tensor (every row), or a (B,) tensor (each row at its own index). On
+    CUDA the kernel reads the cache in place through its strides, and a
+    tensor ``pos`` on the card as a device array."""
     q3 = q[:, 0]
     if q.device.type == "cpu":
         out = decode_attention_ref(q3, k.transpose(1, 2), v.transpose(1, 2),

@@ -11,8 +11,8 @@ the JAX package's Pallas kernels of ``repro.kernels.paged_attention``.
   (``ref.paged_decode_attention_ref``) on the CPU.
 - :func:`decode_attention_cuda` (``csrc/decode_attention.cu``) replaces
   ``decode_attention_pallas``: one query over a ring cache, read in the
-  model's (B,C,Hkv,D) layout through its strides, at a host-scalar ``pos``,
-  split across blocks (:func:`ring_split`) and merged in the same launch.
+  model's (B,C,Hkv,D) layout through its strides, at a host-scalar ``pos``
+  or at per-row positions held in a device tensor, split across blocks (:func:`ring_split`) and merged in the same launch.
   ``ops.decode_attention`` calls it on a CUDA device and
   ``ref.decode_attention_ref`` on the CPU.
 
@@ -160,11 +160,15 @@ def decode_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           logit_cap: Optional[float] = None) -> torch.Tensor:
     """q (B,Hq,D) with contiguous heads, ring caches k/v (B,C,Hkv,D) with a
     unit head-dim stride (any other strides, the same for k and v), ``pos``
-    the token index just written (an int, or a 0-dim tensor read on the
-    host) → (B,Hq,D). :func:`ring_split` sets the slots per block from the
-    shape and the card's SM count. The ticket buffer is shared by every
-    launch on a device: launches from two streams at once must not
-    overlap."""
+    the token index just written → (B,Hq,D). ``pos`` is an int or a 0-dim
+    CPU tensor (every row at that index, a host scalar), or an integer
+    tensor on q's device: 0-dim (every row) or (B,) (each row at its own
+    index, as continuous batching decodes). A device tensor is handed to
+    the kernel as a device int32 array that each block reads at its row;
+    the host never reads it, so the call does not synchronize. :func:`ring_split` sets the slots per block from
+    the shape and the card's SM count, whatever the positions. The ticket
+    buffer is shared by every launch on a device: launches from two
+    streams at once must not overlap."""
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.device.type != "cuda" or t.device != q.device:
             raise ValueError(f"{name} must be a CUDA tensor on {q.device}, "
@@ -189,10 +193,19 @@ def decode_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"Hq={hq} is not a multiple of Hkv={hkv}")
     if c == 0:
         raise ValueError("the ring cache has no slots")
+    pos_rows = None
+    if isinstance(pos, torch.Tensor) and pos.dim() == 0 \
+            and pos.device.type == "cpu":
+        pos = int(pos)     # a host scalar: reading it waits for nothing
     if isinstance(pos, torch.Tensor):
-        if pos.dim() != 0:
-            raise ValueError("pos must be a scalar (one index for every row)")
-        pos = int(pos)
+        if pos.device != q.device:
+            raise ValueError(f"pos must lie on {q.device}, got {pos.device}")
+        if pos.dtype.is_floating_point or pos.dtype == torch.bool \
+                or pos.dim() > 1 or (pos.dim() == 1 and pos.shape[0] != b):
+            raise ValueError(f"pos must be an integer scalar or ({b},) "
+                             f"tensor, got {pos.dtype} {tuple(pos.shape)}")
+        pos_rows = pos.to(torch.int32).expand(b).contiguous()
+        pos = 0
     if logit_cap is not None and logit_cap <= 0:
         raise ValueError(f"logit_cap must be > 0 or None, got {logit_cap}")
     split = ring_split(b * hkv, c, _n_sm(q.device))
@@ -215,7 +228,9 @@ def decode_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.decode_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            DTYPE_CODES[q.dtype], int(pos), b, hq, hkv, c, d, q.stride(0),
+            DTYPE_CODES[q.dtype], int(pos),
+            None if pos_rows is None else pos_rows.data_ptr(), b, hq, hkv, c,
+            d, q.stride(0),
             *k.stride()[:3], float(scale),
             0.0 if logit_cap is None else float(logit_cap), split,
             None if part is None else part.data_ptr(), tickets.data_ptr(),

@@ -56,13 +56,14 @@ def decode_attention_ref(
     q: torch.Tensor,       # (B, Hq, D) — one token per sequence
     k: torch.Tensor,       # (B, Hkv, C, D) ring cache
     v: torch.Tensor,       # (B, Hkv, C, D)
-    pos: Union[int, torch.Tensor],   # scalar — token index just written
+    pos: Union[int, torch.Tensor],   # token index just written: () or (B,)
     *,
     scale: float,
     logit_cap: Optional[float] = None,
 ) -> torch.Tensor:
     """Attention of one query over a ring-buffer cache: slot j holds token
-    t_j = pos - ((pos - j) mod C); valid iff t_j >= 0."""
+    t_j = pos - ((pos - j) mod C); valid iff t_j >= 0. ``pos`` is one index
+    for every row (an int or 0-dim tensor) or one per row ((B,) tensor)."""
     b, hq, d = q.shape
     hkv, c = k.shape[1], k.shape[2]
     g = hq // hkv
@@ -70,8 +71,9 @@ def decode_attention_ref(
     sc = torch.einsum("bkgd,bkcd->bkgc", qf, k.float())
     sc = _softcap(sc, logit_cap)
     j = torch.arange(c, device=q.device)
-    tj = pos - torch.remainder(pos - j, c)
-    sc = torch.where(tj >= 0, sc, NEG_INF)
+    p = pos if isinstance(pos, int) else pos.reshape(-1, 1)   # (1|B, 1)
+    tj = p - torch.remainder(p - j, c)                        # (C,) or (1|B, C)
+    sc = torch.where((tj >= 0).reshape(-1, 1, 1, c), sc, NEG_INF)
     p = torch.softmax(sc, dim=-1)
     out = torch.einsum("bkgc,bkcd->bkgd", p, v.float())
     return out.reshape(b, hq, d).to(q.dtype)

@@ -1,5 +1,6 @@
-"""GQA attention mixer: full-sequence (prefill) and single-token decode,
-with sliding windows, logit softcap and RoPE.
+"""GQA attention mixer: full-sequence (prefill), chunked prefill against
+an existing cache, and single-token decode, with sliding windows, logit
+softcap and RoPE.
 
 KV caches for sliding-window layers are ring buffers of capacity
 ``min(window, max_seq)`` — token ``t`` lives in slot ``t % C``. Where the
@@ -202,6 +203,77 @@ def attention_prefill(cfg: ModelConfig, spec: LayerSpec, p: Dict,
     return out, cache
 
 
+def _ring_write_at(buf: torch.Tensor, vals: torch.Tensor, offset: int,
+                   valid_len: int) -> torch.Tensor:
+    """Write a chunk (B,S,...) into a ring buffer (B,C,...) in place at an
+    arbitrary start: token ``offset + i`` -> slot ``(offset + i) % C``.
+    Only the first ``valid_len`` tokens are real (the rest pad a final
+    partial chunk) and only they are written, so slots that still hold live
+    earlier tokens of a windowed layer are not clobbered. When more than C
+    tokens are valid only the last C land (unique slots), as in
+    ``_ring_write_seq``."""
+    c = buf.shape[1]
+    idx = torch.arange(max(0, valid_len - c), valid_len, device=buf.device)
+    buf[:, torch.remainder(offset + idx, c)] = vals[:, idx].to(buf.dtype)
+    return buf
+
+
+# ---------------------------------------------------------------------------
+# Chunked prefill (a chunk attends over [cache ++ chunk] at its offset)
+# ---------------------------------------------------------------------------
+
+
+def attention_prefill_chunk(cfg: ModelConfig, spec: LayerSpec, p: Dict,
+                            x: torch.Tensor, offset: int,
+                            positions: torch.Tensor, valid_len: int,
+                            cache: Dict, *,
+                            swa_override: Optional[int] = None
+                            ) -> Tuple[torch.Tensor, Dict]:
+    """One prefill chunk x (B,S,D) at global position ``offset`` against an
+    existing cache: queries attend over ``[cache ++ chunk]`` with per-query
+    causal (and sliding-window) masks, then the chunk's K/V are written
+    into the cache in place at slots ``(offset + i) % C``. Returns
+    (out, cache).
+
+    Two segments, one softmax: (a) the prior cache, read *before* the
+    write, so a windowed layer whose chunk wraps the ring keeps its
+    in-window history — slot j holds token h_j = (offset-1) -
+    ((offset-1-j) mod C) (floor mod), valid while h_j >= 0 and in the
+    query's window; (b) the chunk itself, causal at a shared offset. Padded
+    tail tokens (``i >= valid_len``) are neither attended by a valid query
+    nor written; their output rows are garbage the caller discards. Masks
+    use the finite ``NEG_INF``. ``offset`` and ``valid_len`` are Python
+    ints. The plain path runs on every device: the JAX package has no
+    Pallas kernel for this function either."""
+    b, s, _ = x.shape
+    hq, hd = cfg.n_heads, cfg.head_dim
+    c = cache["k"].shape[1]
+    dev = x.device
+    q, k, v = _project_qkv(cfg, p, x, positions)
+    window = _window(spec, swa_override)
+    scale = _scale(cfg)
+    qi = offset + torch.arange(s, device=dev)              # global query pos
+    j = torch.arange(c, device=dev)
+    hj = (offset - 1) - torch.remainder(offset - 1 - j, c)  # cached token ids
+    m_hist = ((hj >= 0) & (offset > 0)).expand(s, c)
+    ii = torch.arange(s, device=dev)
+    m_chunk = (ii[None, :] <= ii[:, None]) & (ii[None, :] < valid_len)
+    if window is not None:
+        m_hist = m_hist & (hj[None, :] > qi[:, None] - window)
+        m_chunk = m_chunk & (ii[None, :] > ii[:, None] - window)
+    sc_hist = _gqa_scores(q, cache["k"]) * scale           # (B,S,Hq,C)
+    sc_chunk = _gqa_scores(q, k) * scale                   # (B,S,Hq,S)
+    scores = softcap(torch.cat([sc_hist, sc_chunk], dim=-1),
+                     cfg.attn_logit_softcap)
+    mask = torch.cat([m_hist, m_chunk], dim=-1)            # (S, C+S)
+    probs = _masked_softmax(scores, mask[None, :, None, :])
+    v_all = torch.cat([cache["v"], v.to(cache["v"].dtype)], dim=1)
+    out = _gqa_out(probs, v_all).to(x.dtype).reshape(b, s, hq * hd)
+    _ring_write_at(cache["k"], k, offset, valid_len)
+    _ring_write_at(cache["v"], v, offset, valid_len)
+    return out @ p["wo"], cache
+
+
 def _ring_write_seq(buf: torch.Tensor, vals: torch.Tensor) -> torch.Tensor:
     """Write a full sequence (B,S,...) into a ring buffer (B,C,...) in
     place: token t -> slot t % C. When S <= C this is a plain prefix
@@ -237,17 +309,18 @@ def attention_decode(cfg: ModelConfig, spec: LayerSpec, p: Dict,
                      ) -> Tuple[torch.Tensor, Dict]:
     """One token per row, x (B,1,D). ``pos`` is the index being written: a
     Python int or 0-dim tensor (every row at the same index), or a (B,)
-    tensor (each row at its own index). The cache is updated in place.
-    With an int ``pos`` on a CUDA tensor the attention goes through the
-    ring-decode kernel; a tensor ``pos`` keeps the plain path (the kernel
-    takes one host scalar, and reading a tensor would sync the host)."""
+    tensor (each row at its own index, as the continuous scheduler
+    decodes). The cache is updated in place. Under ``"kernel"`` (a CUDA
+    tensor) the attention goes through the ring-decode kernel for every
+    form of ``pos``; a tensor ``pos`` reaches it on the device, never read
+    by the host."""
     b, _, _ = x.shape
     hq, hd = cfg.n_heads, cfg.head_dim
     c = cache["k"].shape[1]
     q, k, v = _project_qkv(cfg, p, x, positions)
     new_k = _ring_write_token(cache["k"], k, pos)
     new_v = _ring_write_token(cache["v"], v, pos)
-    if isinstance(pos, int) and runtime.attention_impl(x.device) == "kernel":
+    if runtime.attention_impl(x.device) == "kernel":
         from repro_torch.kernels import ops as kops
         # the kernel takes one dtype: q in the cache's (the same on the
         # serving path)

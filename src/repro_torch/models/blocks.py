@@ -135,6 +135,29 @@ def apply_layer_prefill(cfg: ModelConfig, spec: LayerSpec, p: Dict,
     return _post_mixer(cfg, spec, p, x, h), aux, cache
 
 
+def apply_layer_prefill_chunk(cfg: ModelConfig, spec: LayerSpec, p: Dict,
+                              x: torch.Tensor, offset: int,
+                              positions: torch.Tensor, valid_len: int,
+                              cache: Dict, *, swa_override: Optional[int] = None
+                              ) -> Tuple[torch.Tensor, torch.Tensor, Dict]:
+    """One prefill chunk through one layer: the chunk attends over
+    ``[cache ++ chunk]`` at its offset and the cache advances (in place) by
+    the chunk's valid K/V. Attention layers only — a Mamba2 or
+    cross-attention layer has no per-position cache to resume from
+    (``Model.supports_chunked_prefill`` gates this upstream). Returns (x,
+    aux_loss, cache)."""
+    if spec.mixer == "mamba2" or spec.cross_attn:
+        raise NotImplementedError(
+            "chunked prefill supports attention self-attention layers only "
+            "(gate on Model.supports_chunked_prefill)")
+    h = apply_norm(cfg, p["pre_norm"], x)
+    h, cache = attn.attention_prefill_chunk(
+        cfg, spec, p["mixer"], h, offset, positions, valid_len, cache,
+        swa_override=swa_override)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return _post_mixer(cfg, spec, p, x, h), aux, cache
+
+
 def apply_layer_decode(cfg: ModelConfig, spec: LayerSpec, p: Dict,
                        x: torch.Tensor, pos, positions: torch.Tensor,
                        cache: Dict, *, swa_override: Optional[int] = None

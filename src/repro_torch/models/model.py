@@ -1,5 +1,6 @@
 """Public model facade: build once from a ``ModelConfig``, then call
-``init`` / ``forward`` / ``prefill`` / ``decode_step``."""
+``init`` / ``forward`` / ``prefill`` / ``prefill_chunk`` / ``decode_step``,
+or ask ``cache_specs`` for a cache's shapes and types."""
 
 from __future__ import annotations
 
@@ -45,6 +46,32 @@ class Model:
         return tfm.prefill(self.cfg, params, batch["tokens"], cache,
                            positions=batch.get("positions"),
                            swa_override=self.swa_override)
+
+    def prefill_chunk(self, params: Dict, batch: Dict, offset: int,
+                      valid_len: int, cache: Dict) -> Tuple[torch.Tensor, Dict]:
+        """Cache-aware prefill of one prompt chunk at global position
+        ``offset`` (see ``transformer.prefill_chunk``); only the first
+        ``valid_len`` tokens are real, and the logits are the last valid
+        token's. Needs ``supports_chunked_prefill``."""
+        return tfm.prefill_chunk(self.cfg, params, batch["tokens"], offset,
+                                 valid_len, cache,
+                                 swa_override=self.swa_override)
+
+    def supports_chunked_prefill(self) -> bool:
+        """Chunked prefill resumes from a per-position KV cache; recurrent
+        (mamba2) mixers, cross-attention layers and encoder frontends carry
+        state the chunk path cannot."""
+        return self.cfg.encoder is None and all(
+            spec.mixer in ("attn", "mla") and not spec.cross_attn
+            for seg in self.cfg.segments for spec in seg.pattern)
+
+    def cache_specs(self, batch: int, max_seq: int,
+                    dtype: torch.dtype = torch.bfloat16) -> Dict:
+        """The cache ``init_cache`` would build, as tensors on the ``meta``
+        device: shapes and types, no memory."""
+        return tfm.init_cache(self.cfg, batch, max_seq, dtype,
+                              torch.device("meta"),
+                              swa_override=self.swa_override)
 
     def decode_step(self, params: Dict, cache: Dict, token: torch.Tensor,
                     pos) -> Tuple[torch.Tensor, Dict]:

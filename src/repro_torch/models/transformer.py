@@ -1,4 +1,5 @@
-"""Segment-stacked transformer: init, forward, prefill and decode.
+"""Segment-stacked transformer: init, forward, prefill, chunked prefill
+and decode.
 
 Parameters of each repeated layer pattern are stacked along a leading
 ``repeats`` dimension, exactly as the JAX reference lays them out
@@ -139,6 +140,32 @@ def prefill(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
                     cfg, spec, layer[f"p{i}"], x, positions,
                     layer_cache[f"p{i}"], swa_override=swa_override)
     return final_logits(cfg, params, x[:, -1:, :]), cache
+
+
+def prefill_chunk(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
+                  offset: int, valid_len: int, cache: Dict, *,
+                  swa_override: Optional[int] = None
+                  ) -> Tuple[torch.Tensor, Dict]:
+    """Cache-aware prefill of one prompt chunk (B,S) at global position
+    ``offset``, of which the first ``valid_len`` tokens are real: each
+    layer's chunk attends over ``[cache ++ chunk]``, so prefilling a prompt
+    chunk by chunk leaves the cache a whole-prompt ``prefill`` would.
+    Returns (logits of the last valid token (B,1,V), cache), the cache
+    written in place."""
+    b, s = tokens.shape
+    positions = offset + _default_positions(tokens)
+    x = embed_tokens(cfg, params, tokens)
+    for seg, seg_params, seg_cache in zip(cfg.segments, params["segments"],
+                                          cache["segments"]):
+        for r in range(seg.repeats):
+            layer, layer_cache = _index(seg_params, r), _index(seg_cache, r)
+            for i, spec in enumerate(seg.pattern):
+                x, _, _ = blocks.apply_layer_prefill_chunk(
+                    cfg, spec, layer[f"p{i}"], x, offset, positions,
+                    valid_len, layer_cache[f"p{i}"],
+                    swa_override=swa_override)
+    last = x[:, valid_len - 1:valid_len]
+    return final_logits(cfg, params, last), cache
 
 
 def decode_step(cfg: ModelConfig, params: Dict, cache: Dict,

@@ -1,0 +1,202 @@
+"""Metrics registry: counters, gauges, fixed-bucket histograms, collectors.
+
+`MetricsRegistry` is the one aggregation point the session's observability
+surface hangs off. Two kinds of metric live here:
+
+- **owned instruments** — `Counter` / `Gauge` / `Histogram` objects created
+  through the registry (the scheduler's per-request TTFT / queue-wait /
+  per-output-token histograms);
+- **collectors** — named callables returning a stats mapping, registered by
+  the session for every subsystem snapshot that already exists
+  (``PoolStats``/``TransferStats``/``SchedStats``/``ServeStats``/prefix
+  counters). ``collect()`` re-homes those legacy snapshots onto the
+  registry without forcing every subsystem to hold registry handles.
+
+``render_prometheus()`` emits a Prometheus-style text exposition of both:
+owned instruments with ``# TYPE`` headers (histograms in the cumulative
+``_bucket{le=...}`` form), collector output flattened to
+``name_path value`` samples (non-numeric leaves skipped).
+"""
+
+from __future__ import annotations
+
+import bisect
+import re
+from typing import Any, Callable, Dict, List, Mapping, Optional, Sequence, Tuple
+
+__all__ = ["Counter", "Gauge", "Histogram", "MetricsRegistry"]
+
+#: default histogram buckets for scheduler-step latencies (virtual steps)
+STEP_BUCKETS: Tuple[float, ...] = (1, 2, 4, 8, 16, 32, 64, 128, 256, 512)
+
+
+class Counter:
+    """Monotonic counter."""
+
+    __slots__ = ("name", "help", "value")
+
+    def __init__(self, name: str, help: str = "") -> None:
+        self.name = name
+        self.help = help
+        self.value = 0.0
+
+    def inc(self, n: float = 1.0) -> None:
+        if n < 0:
+            raise ValueError("counters only go up")
+        self.value += n
+
+
+class Gauge:
+    """Set-to-current-value instrument."""
+
+    __slots__ = ("name", "help", "value")
+
+    def __init__(self, name: str, help: str = "") -> None:
+        self.name = name
+        self.help = help
+        self.value = 0.0
+
+    def set(self, v: float) -> None:
+        self.value = float(v)
+
+
+class Histogram:
+    """Fixed-bucket histogram (cumulative on export, per-bucket inside).
+    ``buckets`` are upper bounds; observations above the last bound land
+    in the implicit +Inf bucket."""
+
+    __slots__ = ("name", "help", "buckets", "counts", "sum", "count")
+
+    def __init__(self, name: str, buckets: Sequence[float],
+                 help: str = "") -> None:
+        if not buckets or list(buckets) != sorted(buckets):
+            raise ValueError("buckets must be a non-empty ascending sequence")
+        self.name = name
+        self.help = help
+        self.buckets = tuple(float(b) for b in buckets)
+        self.counts = [0] * (len(self.buckets) + 1)   # [+Inf] last
+        self.sum = 0.0
+        self.count = 0
+
+    def observe(self, v: float) -> None:
+        self.counts[bisect.bisect_left(self.buckets, v)] += 1
+        self.sum += v
+        self.count += 1
+
+    def snapshot(self) -> Dict[str, Any]:
+        cum, cumulative = 0, {}
+        for b, c in zip(self.buckets, self.counts):
+            cum += c
+            cumulative[b] = cum
+        return {"count": self.count, "sum": self.sum,
+                "mean": self.sum / self.count if self.count else 0.0,
+                "buckets": cumulative}
+
+
+def _prom_name(name: str) -> str:
+    return re.sub(r"[^a-zA-Z0-9_:]", "_", name)
+
+
+def _flatten(prefix: str, obj: Any, out: List[Tuple[str, float]]) -> None:
+    if isinstance(obj, Mapping):
+        for k, v in obj.items():
+            _flatten(f"{prefix}_{k}" if prefix else str(k), v, out)
+    elif isinstance(obj, bool) or obj is None:
+        return
+    elif isinstance(obj, (int, float)):
+        out.append((prefix, float(obj)))
+
+
+class MetricsRegistry:
+    """Counters/gauges/histograms plus legacy-snapshot collectors (see
+    module doc). Instrument getters are idempotent: asking for an existing
+    name returns the existing instrument (a histogram re-request must name
+    the same buckets)."""
+
+    def __init__(self) -> None:
+        self._counters: Dict[str, Counter] = {}
+        self._gauges: Dict[str, Gauge] = {}
+        self._histograms: Dict[str, Histogram] = {}
+        self._collectors: Dict[str, Callable[[], Any]] = {}
+
+    # -- owned instruments ---------------------------------------------
+    def counter(self, name: str, help: str = "") -> Counter:
+        if name not in self._counters:
+            self._counters[name] = Counter(name, help)
+        return self._counters[name]
+
+    def gauge(self, name: str, help: str = "") -> Gauge:
+        if name not in self._gauges:
+            self._gauges[name] = Gauge(name, help)
+        return self._gauges[name]
+
+    def histogram(self, name: str, buckets: Sequence[float],
+                  help: str = "") -> Histogram:
+        h = self._histograms.get(name)
+        if h is None:
+            h = self._histograms[name] = Histogram(name, buckets, help)
+        elif h.buckets != tuple(float(b) for b in buckets):
+            raise ValueError(
+                f"histogram {name!r} already registered with buckets "
+                f"{h.buckets}")
+        return h
+
+    # -- collectors (legacy snapshot re-homing) -------------------------
+    def register_collector(self, name: str, fn: Callable[[], Any]) -> None:
+        """Register ``fn() -> stats mapping`` under ``name``; ``collect``
+        and the Prometheus exposition call it lazily. Re-registering a
+        name replaces it."""
+        self._collectors[name] = fn
+
+    def collect(self) -> Dict[str, Any]:
+        """Every collector's current snapshot, in registration order —
+        the session's ``stats()`` body."""
+        return {name: fn() for name, fn in self._collectors.items()}
+
+    # -- export ---------------------------------------------------------
+    def snapshot(self) -> Dict[str, Any]:
+        """Owned instruments only (collectors are read via ``collect``)."""
+        out: Dict[str, Any] = {}
+        if self._counters:
+            out["counters"] = {n: c.value for n, c in self._counters.items()}
+        if self._gauges:
+            out["gauges"] = {n: g.value for n, g in self._gauges.items()}
+        if self._histograms:
+            out["histograms"] = {n: h.snapshot()
+                                 for n, h in self._histograms.items()}
+        return out
+
+    def render_prometheus(self) -> str:
+        """Prometheus text exposition: owned instruments (typed) plus
+        flattened collector samples (untyped gauges)."""
+        lines: List[str] = []
+        for c in self._counters.values():
+            n = _prom_name(c.name)
+            if c.help:
+                lines.append(f"# HELP {n} {c.help}")
+            lines.append(f"# TYPE {n} counter")
+            lines.append(f"{n} {c.value:g}")
+        for g in self._gauges.values():
+            n = _prom_name(g.name)
+            if g.help:
+                lines.append(f"# HELP {n} {g.help}")
+            lines.append(f"# TYPE {n} gauge")
+            lines.append(f"{n} {g.value:g}")
+        for h in self._histograms.values():
+            n = _prom_name(h.name)
+            if h.help:
+                lines.append(f"# HELP {n} {h.help}")
+            lines.append(f"# TYPE {n} histogram")
+            cum = 0
+            for b, c in zip(h.buckets, h.counts):
+                cum += c
+                lines.append(f'{n}_bucket{{le="{b:g}"}} {cum}')
+            lines.append(f'{n}_bucket{{le="+Inf"}} {h.count}')
+            lines.append(f"{n}_sum {h.sum:g}")
+            lines.append(f"{n}_count {h.count}")
+        for name, fn in self._collectors.items():
+            samples: List[Tuple[str, float]] = []
+            _flatten(_prom_name(name), fn(), samples)
+            for sample_name, value in samples:
+                lines.append(f"{_prom_name(sample_name)} {value:g}")
+        return "\n".join(lines) + "\n"

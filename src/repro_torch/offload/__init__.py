@@ -1,6 +1,10 @@
 """Offload runtime of the PyTorch port: the paged KV cache whose pages live
-in the memory pool (``kvcache``)."""
+in the memory pool, and the continuous scheduler's per-request page table
+(``kvcache``)."""
 
-from repro_torch.offload.kvcache import PagedKVCache, PrefetchedPages
+from repro_torch.offload.kvcache import (
+    KVPageTable, PagedKVCache, PrefetchedPages, worst_case_page_bytes,
+)
 
-__all__ = ["PagedKVCache", "PrefetchedPages"]
+__all__ = ["KVPageTable", "PagedKVCache", "PrefetchedPages",
+           "worst_case_page_bytes"]

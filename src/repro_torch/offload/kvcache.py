@@ -1,5 +1,7 @@
 """Paged KV cache backed by the runtime memory pool (the counterpart of
-``repro.offload.kvcache``).
+``repro.offload.kvcache``), and the continuous scheduler's per-request
+page table (``KVPageTable``, sized for admission by
+``worst_case_page_bytes``).
 
 Layout per layer: each full page is its own entry in the
 ``MemoryPoolManager`` (host tier by default — pages are non-contiguous by
@@ -28,7 +30,7 @@ from __future__ import annotations
 
 import dataclasses
 import itertools
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -44,6 +46,66 @@ from repro_torch.pool import MemoryPoolManager, TransferHandle, auto_depth
 # per-instance pool-key namespace, so caches sharing one pool (e.g. one pool
 # across a model's layers) never collide on page keys
 _CACHE_IDS = itertools.count()
+
+
+class KVPageTable:
+    """One request's KV pages in the pool — the continuous scheduler's
+    per-request page table (``sched.requests``).
+
+    Each page is one (layer, leaf) row of the request's slice of the
+    stacked decode cache, stored under a request-stable key: re-parking a
+    page replaces the entry in place (and reuses its buffer), and the
+    pool's priority+LRU manager decides where it lives — parked on the
+    device tier, spilled to the host tier and then to remote under
+    capacity pressure, without the table noticing. Admission reserves the
+    table's worst case up front (``MemoryPoolManager.reserve``, sized by
+    :func:`worst_case_page_bytes`).
+
+    A park stores a snapshot: the pool copies the row (the device tier into
+    a buffer of its own, the host tier on the copy stream after the
+    producer's stream, synchronized before ``put`` returns), so the caller
+    may overwrite the row in place right after — the scheduler's next
+    decode step writes the batch cache the pages came from.
+    """
+
+    def __init__(self, pool: MemoryPoolManager, name: str) -> None:
+        self.pool = pool
+        self.key_ns = f"{name}-{next(_CACHE_IDS)}"
+        self.keys: Dict[str, str] = {}    # page label -> pool key
+
+    def __len__(self) -> int:
+        return len(self.keys)
+
+    def key_of(self, label: str) -> str:
+        return self.keys.setdefault(label, f"{self.key_ns}/{label}")
+
+    def park(self, label: str, value: torch.Tensor, tier: str, *,
+             priority: float = 0.0) -> str:
+        key = self.key_of(label)
+        self.pool.put(key, value, tier, priority=priority)
+        return key
+
+    def fetch(self, label: str) -> torch.Tensor:
+        return self.pool.get(self.keys[label])
+
+    def drop(self) -> None:
+        """Retire the request: drop every page still in the pool."""
+        for k in self.keys.values():
+            if k in self.pool:
+                self.pool.drop(k)
+        self.keys.clear()
+
+
+def worst_case_page_bytes(cache_specs: Any) -> int:
+    """Worst-case pool footprint of one request's pages: every leaf of the
+    per-request cache row at max_seq (``Model.cache_specs(1, max_seq)``,
+    tensors on the ``meta`` device). Admission sizes its reservation with
+    it before any page exists."""
+    if isinstance(cache_specs, torch.Tensor):
+        return cache_specs.numel() * cache_specs.element_size()
+    items = cache_specs.values() if isinstance(cache_specs, dict) \
+        else cache_specs
+    return sum(worst_case_page_bytes(v) for v in items)
 
 
 @dataclasses.dataclass

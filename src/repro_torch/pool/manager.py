@@ -4,9 +4,15 @@ The counterpart of ``repro.pool.manager``. ``MemoryPoolManager`` owns an
 ordered spill chain of tiers, described by a ``TierTopology``
 (``default_pool`` builds the standard device → host → remote chain). Each
 ``put`` is charged against the tier's byte capacity; when a tier is full,
-victims are chosen by (priority, then LRU) and **spilled** to the next tier
-down the chain. Only when the last tier is full does a put fail with
-``PoolCapacityError``.
+victims are chosen by (priority, then LRU) among unpinned entries and
+**spilled** to the next tier down the chain. Only when the last tier is full
+does a put fail with ``PoolCapacityError``. Listeners registered with
+``add_evict_listener`` hear of every spill.
+
+Admission control keeps a reservation ledger beside the tiers
+(``reserve``/``release``): the serving scheduler admits a request only when
+its worst-case pages fit in the admitting tiers on top of their occupancy
+and every standing reservation.
 
 All traffic is counted (puts/gets/evictions, bytes in/out, per-tier
 occupancy and high-water mark) and surfaced by ``snapshot()``; synchronous
@@ -21,10 +27,11 @@ time would dominate the step.
 
 from __future__ import annotations
 
+import math
 import threading
 import time
 from dataclasses import dataclass, field
-from typing import Any, Dict, List, Optional, Sequence
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -46,6 +53,7 @@ class PoolEntry:
     handle: Any
     nbytes: int
     priority: float = 0.0      # higher → evicted later
+    pinned: bool = False       # never chosen as an eviction victim
     last_use: int = 0          # LRU clock
     #: prefetches of this entry not yet known to have run; a re-put that
     #: reuses the entry's buffer waits for them first
@@ -101,8 +109,18 @@ class MemoryPoolManager:
         self.stats = PoolStats()
         self._clock = 0
         self._lock = threading.RLock()
+        # admission ledger: key -> (nbytes, tiers reserved against, covered
+        # key prefix whose entries the reservation pays for)
+        self._reservations: Dict[
+            str, Tuple[int, Tuple[str, ...], Optional[str]]] = {}
+        self._evict_listeners: List[Callable[[PoolEntry, str], None]] = []
 
     # -- topology-derived roles ----------------------------------------
+    @property
+    def top_tier(self) -> str:
+        """The chain's fastest tier — where compute-resident pages park."""
+        return self.spill_order[0]
+
     @property
     def default_store_tier(self) -> str:
         """Where ``put`` lands when the caller names no tier: the
@@ -117,9 +135,23 @@ class MemoryPoolManager:
                 return name
         return self.spill_order[-1]
 
+    @property
+    def admission_tiers(self) -> Tuple[str, ...]:
+        """Tiers admission control counts a request's worst-case pages
+        against: the topology's ``admit`` declarations; for a pool without
+        a topology, its device and host tiers (else every tier above the
+        last)."""
+        if self.topology is not None:
+            return self.topology.admission_tiers
+        legacy = tuple(n for n in self.spill_order
+                       if n in (B.DEVICE_TIER, B.HOST_TIER))
+        if legacy:
+            return legacy
+        return tuple(self.spill_order[:-1]) or (self.spill_order[0],)
+
     # -- storing -------------------------------------------------------
     def put(self, key: str, value: torch.Tensor, tier: Optional[str] = None,
-            *, priority: float = 0.0) -> PoolEntry:
+            *, priority: float = 0.0, pinned: bool = False) -> PoolEntry:
         """Store a snapshot of ``value`` into ``tier`` (default: the pool's
         ``default_store_tier``), evicting (spilling down-hierarchy) as
         needed. Re-putting an existing key replaces it; if the new value
@@ -154,7 +186,7 @@ class MemoryPoolManager:
             self._clock += 1
             entry = PoolEntry(key=key, tier=tier, handle=handle,
                               nbytes=nbytes, priority=priority,
-                              last_use=self._clock)
+                              pinned=pinned, last_use=self._clock)
             self.entries[key] = entry
             st.used += nbytes
             st.peak = max(st.peak, st.used)
@@ -222,6 +254,120 @@ class MemoryPoolManager:
             self._forget(key)
             self.stats.drops += 1
 
+    def pin(self, key: str, pinned: bool = True) -> None:
+        with self._lock:
+            self.entries[key].pinned = pinned
+
+    def set_priority(self, key: str, priority: float) -> None:
+        """Re-rank an entry for eviction without touching its data (no-op
+        for keys not in the pool)."""
+        with self._lock:
+            entry = self.entries.get(key)
+            if entry is not None:
+                entry.priority = priority
+
+    # -- admission control (capacity reservation) ----------------------
+    def reserve(self, key: str, nbytes: int,
+                tiers: Optional[Sequence[str]] = None,
+                covers: Optional[str] = None,
+                itemsize: Optional[int] = None) -> bool:
+        """Reserve ``nbytes`` of worst-case capacity against the combined
+        byte budget of ``tiers`` (default: every tier): it fits when the
+        tiers' occupancy plus every standing reservation plus ``nbytes``
+        stays within their capacity. Reservations are bookkeeping only and
+        never block ``put``. ``covers`` names a key prefix whose entries
+        this reservation pays for: their occupancy is left out of the
+        check, so a running request's parked pages are not counted twice.
+        ``itemsize`` is the decoded element size of the reserved pages
+        (see :meth:`tier_scale`). Returns False, and records nothing, when
+        it does not fit; re-reserving a key replaces it. A tier of
+        unbounded capacity makes every reservation fit."""
+        with self._lock:
+            tiers = tuple(tiers) if tiers is not None \
+                else tuple(self.spill_order)
+            old = self._reservations.pop(key, None)
+            cap, used, unbounded = self._capacity_used(tiers, itemsize)
+            if not unbounded:
+                held = sum(n for n, ts, _ in self._reservations.values()
+                           if set(ts) & set(tiers))
+                if used + held + int(nbytes) > cap:
+                    if old is not None:
+                        self._reservations[key] = old
+                    return False
+            self._reservations[key] = (int(nbytes), tiers, covers)
+            return True
+
+    def release(self, key: str) -> None:
+        """Drop a reservation (no-op if absent)."""
+        with self._lock:
+            self._reservations.pop(key, None)
+
+    def reserved_bytes(self, tiers: Optional[Sequence[str]] = None) -> int:
+        with self._lock:
+            if tiers is None:
+                return sum(n for n, _, _ in self._reservations.values())
+            want = set(tiers)
+            return sum(n for n, ts, _ in self._reservations.values()
+                       if set(ts) & want)
+
+    def headroom(self, tiers: Sequence[str],
+                 itemsize: Optional[int] = None) -> Optional[int]:
+        """Free bytes across ``tiers`` after occupancy (reservation-covered
+        entries excluded) and standing reservations (None = unbounded)."""
+        with self._lock:
+            cap, used, unbounded = self._capacity_used(tiers, itemsize)
+            if unbounded:
+                return None
+            return cap - used - self.reserved_bytes(tiers)
+
+    def tier_scale(self, name: str, itemsize: Optional[int]) -> float:
+        """On-wire bytes per decoded byte for entries at rest in ``name``.
+        Always 1.0 here: no tier of the port encodes its pages (the page
+        codecs are not ported), so a page occupies its decoded size."""
+        self._tier(name)
+        return 1.0
+
+    def _capacity_used(self, tiers: Sequence[str],
+                       itemsize: Optional[int] = None
+                       ) -> Tuple[int, int, bool]:
+        """(capacity, occupancy net of covered entries, any unbounded)
+        across ``tiers``, each tier's bytes divided by its
+        :meth:`tier_scale`. Covered entries (key under a reservation's
+        ``covers`` prefix) are charged through their reservation."""
+        cap = used = 0.0
+        unbounded = False
+        names = set(tiers)
+        prefixes = tuple(c for _, ts, c in self._reservations.values()
+                         if c is not None and set(ts) & names)
+        for t in tiers:
+            st = self._tier(t)
+            if st.capacity is None:
+                unbounded = True
+                continue
+            scale = self.tier_scale(t, itemsize)
+            tier_used = st.used
+            if prefixes:
+                tier_used -= sum(e.nbytes for e in self.entries.values()
+                                 if e.tier == t and e.key.startswith(prefixes))
+            cap += st.capacity / scale
+            used += tier_used / scale
+        # floor capacity / ceil occupancy: rounding never over-admits
+        return int(math.floor(cap)), int(math.ceil(used)), unbounded
+
+    # -- eviction notification -----------------------------------------
+    def add_evict_listener(self, cb: Callable[[PoolEntry, str], None]) -> None:
+        """Register ``cb(entry, dst_tier)``, called under the pool's
+        (reentrant) lock after an entry spills down the chain."""
+        with self._lock:
+            self._evict_listeners.append(cb)
+
+    def remove_evict_listener(self,
+                              cb: Callable[[PoolEntry, str], None]) -> None:
+        """Unregister a listener (no-op if absent)."""
+        with self._lock:
+            if cb in self._evict_listeners:
+                self._evict_listeners.remove(cb)
+
     def __contains__(self, key: str) -> bool:
         return key in self.entries
 
@@ -236,11 +382,16 @@ class MemoryPoolManager:
         return (not isinstance(st.backend, B.DeviceBackend)
                 and st.backend.holds(entry.handle))
 
+    def occupancy(self, tier: str) -> Tuple[int, Optional[int]]:
+        st = self._tier(tier)
+        return st.used, st.capacity
+
     def snapshot(self) -> Dict[str, Any]:
         """Stats + per-tier occupancy, for benchmarks/serving to print."""
         with self._lock:
             out: Dict[str, Any] = self.stats.snapshot()
             out["transfer"] = self.transfer.stats.snapshot()
+            out["reserved"] = self.reserved_bytes()
             for name, st in self.tiers.items():
                 out[f"tier/{name}"] = {
                     "backend": st.backend.name, "used": st.used,
@@ -284,7 +435,8 @@ class MemoryPoolManager:
             self._evict(victim)
 
     def _pick_victim(self, tier: str) -> Optional[PoolEntry]:
-        candidates = [e for e in self.entries.values() if e.tier == tier]
+        candidates = [e for e in self.entries.values()
+                      if e.tier == tier and not e.pinned]
         if not candidates:
             return None
         # lowest priority first; LRU breaks ties
@@ -314,6 +466,8 @@ class MemoryPoolManager:
             self.tracer.instant("pool", "spill",
                                 {"key": entry.key, "src": src_st.name,
                                  "dst": dst, "nbytes": new_nbytes})
+        for cb in self._evict_listeners:
+            cb(entry, dst)
 
 
 # ---------------------------------------------------------------------------

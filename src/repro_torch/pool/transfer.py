@@ -143,6 +143,7 @@ class TransferEngine:
         if workers < 1:
             raise ValueError("workers must be >= 1")
         self.depth = depth
+        self.depth_pinned = False   # True: ensure_depth never raises depth
         self.workers = workers
         self._pool = ThreadPoolExecutor(max_workers=workers,
                                         thread_name_prefix="pool-xfer")
@@ -166,9 +167,12 @@ class TransferEngine:
             return stream
 
     def ensure_depth(self, depth: int) -> None:
-        """Raise the in-flight bound to at least ``depth`` (never lowers)."""
+        """Raise the in-flight bound to at least ``depth`` (never lowers):
+        each consumer of a shared engine declares the depth its issue
+        pattern needs. A pinned depth (``depth_pinned``) is never raised."""
         with self._lock:
-            self.depth = max(self.depth, int(depth))
+            if not self.depth_pinned:
+                self.depth = max(self.depth, int(depth))
 
     def record_pair(self, src: str, dst: str, nbytes: int,
                     seconds: float) -> None:

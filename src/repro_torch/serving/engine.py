@@ -10,13 +10,20 @@ Modes:
 
 Batching: one uniform-length prompt batch per ``generate()`` call. The
 engine runs on the device its parameters live on.
+
+``jit_prefill``, ``jit_decode`` and ``jit_prefill_chunk`` are the
+counterparts of the reference's shared entry points, which the continuous
+scheduler calls: plain callables over the model that run it under
+``torch.inference_mode()``. Nothing is compiled — PyTorch runs eagerly —
+and where the reference donates the cache, the model writes it in place.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import itertools
-from typing import Any, Dict, Iterator, List, Optional, Tuple
+from typing import Any, Callable, Dict, Iterator, List, Optional, Tuple
 
 import torch
 
@@ -36,6 +43,37 @@ class ServeStats:
 
 # per-engine pool-key namespace: engines sharing one pool never collide
 _ENGINE_IDS = itertools.count()
+
+
+def _inference(fn: Callable) -> Callable:
+    @functools.wraps(fn)
+    def call(*args, **kwargs):
+        with torch.inference_mode():
+            return fn(*args, **kwargs)
+    return call
+
+
+# shared per model (keyed by the hashable frozen Model), bounded as the
+# reference's compiled entry points are
+@functools.lru_cache(maxsize=64)
+def jit_prefill(model: Model) -> Callable:
+    """``model.prefill(params, batch, cache)`` under inference mode."""
+    return _inference(model.prefill)
+
+
+@functools.lru_cache(maxsize=64)
+def jit_decode(model: Model) -> Callable:
+    """``model.decode_step(params, cache, token, pos)`` under inference
+    mode; the cache is written in place."""
+    return _inference(model.decode_step)
+
+
+@functools.lru_cache(maxsize=64)
+def jit_prefill_chunk(model: Model) -> Callable:
+    """``model.prefill_chunk(params, batch, offset, valid_len, cache)``
+    under inference mode: one fixed (1, chunk_size) token shape, the row
+    cache written in place."""
+    return _inference(model.prefill_chunk)
 
 
 def _flatten(tree: Any) -> Tuple[List[torch.Tensor], Any]:

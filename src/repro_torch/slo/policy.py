@@ -1,0 +1,180 @@
+"""SLO policy vocabulary: priority classes, per-request deadlines, and
+attainment accounting.
+
+An ``SLOSpec`` is attached to a ``Request`` at submission (``request.slo``)
+and threaded through the scheduler untouched: ``priority_class`` orders
+admission and picks preemption victims, ``ttft_deadline`` /
+``tpot_deadline`` (virtual scheduler steps, relative to arrival) decide
+whether a finished request's tokens count toward *goodput* — the
+deadline-met token throughput the admission controller maximizes under
+overload ("Memory Offloading for LLM Inference with Latency SLO
+Guarantees", PAPERS.md).
+
+Everything here is pure policy: no imports from ``repro_torch.sched`` (the
+scheduler imports *us*), states are duck-typed ``RequestState``-likes, and
+``attainment_summary`` works on any finished-state iterable — the
+benchmark uses it to score a FIFO run of the same annotated trace post
+hoc, so FIFO vs SLO-aware comparisons share one scoring implementation.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Dict, Iterable, Optional, Tuple
+
+#: class name -> rank; higher rank is admitted first and never preempted
+#: by a lower rank.
+PRIORITY_CLASSES: Dict[str, int] = {"batch": 0, "standard": 1,
+                                    "interactive": 2}
+
+#: status string a shed request carries (mirrors ``sched.requests.SHED`` —
+#: kept as a literal so policy code never imports the scheduler).
+_SHED = "SHED"
+
+
+@dataclasses.dataclass(frozen=True)
+class SLOSpec:
+    """One request's service-level objective.
+
+    Deadlines are in virtual scheduler steps relative to ``arrival``:
+    ``ttft_deadline`` bounds arrival → first token, ``tpot_deadline``
+    bounds the mean per-output-token latency after the first token
+    (matching the ``req_time_per_output_token_steps`` histogram). ``None``
+    means unconstrained — a request with no deadlines always counts as
+    met, so pure-throughput traffic is goodput by definition."""
+
+    priority_class: str = "standard"
+    ttft_deadline: Optional[float] = None
+    tpot_deadline: Optional[float] = None
+
+    def __post_init__(self) -> None:
+        if self.priority_class not in PRIORITY_CLASSES:
+            raise ValueError(
+                f"priority_class {self.priority_class!r} not in "
+                f"{sorted(PRIORITY_CLASSES)}")
+        for name in ("ttft_deadline", "tpot_deadline"):
+            v = getattr(self, name)
+            if v is not None and not v > 0:
+                raise ValueError(f"{name} must be > 0 (or None), got {v!r}")
+
+    @property
+    def rank(self) -> int:
+        return PRIORITY_CLASSES[self.priority_class]
+
+
+DEFAULT_SLO = SLOSpec()
+
+
+@dataclasses.dataclass(frozen=True)
+class SLOConfig:
+    """SLO-aware scheduling knobs (``OffloadConfig.slo``). Disabled by
+    default — the scheduler then keeps pure FIFO + capacity admission and
+    every counter stays zero."""
+
+    enable: bool = False
+    #: park a lower-priority sequence's KV rows to seat a deadline-pressed
+    #: higher-priority arrival (the chunked-prefill park/restore path as a
+    #: preemption primitive)
+    preemption: bool = True
+    #: drop requests whose TTFT deadline is already unmeetable *before*
+    #: admission (goodput: no prefill spent on certainly-missed work)
+    shed_infeasible: bool = True
+    #: deadline pressure may raise the per-step prefill token budget up to
+    #: ceil(base * max_prefill_boost) (chunked prefill only)
+    max_prefill_boost: float = 4.0
+    #: preemptions allowed per scheduler step (thrash guard)
+    max_preempt_per_step: int = 1
+
+    def __post_init__(self) -> None:
+        if not self.max_prefill_boost >= 1.0:
+            raise ValueError("slo.max_prefill_boost must be >= 1.0, "
+                             f"got {self.max_prefill_boost!r}")
+        if self.max_preempt_per_step < 0:
+            raise ValueError("slo.max_preempt_per_step must be >= 0, "
+                             f"got {self.max_preempt_per_step!r}")
+
+
+def slo_of(state: Any) -> SLOSpec:
+    """The state's spec, defaulting unannotated requests to ``standard``
+    with no deadlines."""
+    spec = getattr(state.request, "slo", None)
+    return spec if spec is not None else DEFAULT_SLO
+
+
+def candidate_key(state: Any) -> Tuple[float, float, float, int]:
+    """Admission order among ready requests: highest priority class first,
+    then earliest absolute TTFT deadline, then FIFO (arrival, id) — sort
+    ascending and the best candidate is ``min``."""
+    spec = slo_of(state)
+    req = state.request
+    deadline = (math.inf if spec.ttft_deadline is None
+                else req.arrival + spec.ttft_deadline)
+    return (-spec.rank, deadline, req.arrival, req.req_id)
+
+
+def slo_outcome(state: Any) -> Dict[str, Any]:
+    """Score one finished (DONE or SHED) state against its spec.
+
+    ``ttft_ok``/``tpot_ok`` are ``None`` when the corresponding deadline is
+    unset (not part of the attainment denominator). A shed request with a
+    TTFT deadline counts as a TTFT *miss* — shedding must not launder the
+    attainment figure. ``met`` (and thus ``met_tokens``) requires every set
+    deadline to hold."""
+    spec = slo_of(state)
+    req = state.request
+    shed = state.status == _SHED
+    tokens = len(state.out)
+    ttft = (None if state.t_first_token is None
+            else state.t_first_token - req.arrival)
+    ttft_ok = ttft_slack = None
+    if spec.ttft_deadline is not None:
+        ttft_ok = ttft is not None and ttft <= spec.ttft_deadline
+        if ttft is not None:
+            ttft_slack = spec.ttft_deadline - ttft
+    tpot_ok = None
+    if spec.tpot_deadline is not None:
+        if state.t_done is None or state.t_first_token is None:
+            tpot_ok = False
+        else:
+            tpot = ((state.t_done - state.t_first_token)
+                    / max(tokens - 1, 1))
+            tpot_ok = tpot <= spec.tpot_deadline
+    met = not shed and ttft_ok is not False and tpot_ok is not False
+    return {"class": spec.priority_class, "shed": shed, "tokens": tokens,
+            "met": met, "met_tokens": tokens if met else 0, "ttft": ttft,
+            "ttft_ok": ttft_ok, "ttft_slack": ttft_slack,
+            "tpot_ok": tpot_ok}
+
+
+def attainment_summary(states: Iterable[Any]) -> Dict[str, Any]:
+    """Aggregate ``slo_outcome`` over finished states: overall request/
+    token/goodput counts plus a per-class breakdown with TTFT/TPOT
+    attainment fractions (``None`` when no request in the class carries
+    that deadline). Shared by the benchmark, launchers, and tests."""
+    total: Dict[str, Any] = {"requests": 0, "shed": 0, "tokens": 0,
+                             "met_tokens": 0}
+    classes: Dict[str, Dict[str, Any]] = {}
+    for st in states:
+        o = slo_outcome(st)
+        c = classes.setdefault(o["class"], {
+            "requests": 0, "shed": 0, "tokens": 0, "met_tokens": 0,
+            "ttft_n": 0, "ttft_met": 0, "tpot_n": 0, "tpot_met": 0})
+        for d in (total, c):
+            d["requests"] += 1
+            d["shed"] += int(o["shed"])
+            d["tokens"] += o["tokens"]
+            d["met_tokens"] += o["met_tokens"]
+        if o["ttft_ok"] is not None:
+            c["ttft_n"] += 1
+            c["ttft_met"] += int(o["ttft_ok"])
+        if o["tpot_ok"] is not None:
+            c["tpot_n"] += 1
+            c["tpot_met"] += int(o["tpot_ok"])
+    for c in classes.values():
+        c["ttft_attainment"] = (c["ttft_met"] / c["ttft_n"]
+                                if c["ttft_n"] else None)
+        c["tpot_attainment"] = (c["tpot_met"] / c["tpot_n"]
+                                if c["tpot_n"] else None)
+    total["classes"] = classes
+    return total

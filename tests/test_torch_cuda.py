@@ -280,7 +280,8 @@ def test_attention_decode_kernel_matches_plain_on_a_phi3_layer(cuda_device,
                                                               dtype):
     """phi3's attention at full width: ``attention_decode`` with an int pos
     launches the ring kernel once and matches the plain path after ``wo``;
-    a (B,) pos takes the plain path."""
+    a (B,) pos launches it once too (the per-row cases are
+    ``test_attention_decode_per_row_pos_takes_the_kernel``)."""
     cfg = REGISTRY["phi3-mini-3.8b"]
     spec = cfg.segments[0].pattern[0]
     g = torch.Generator(device=cuda_device).manual_seed(7)
@@ -310,7 +311,108 @@ def test_attention_decode_kernel_matches_plain_on_a_phi3_layer(cuda_device,
     rows = torch.full((b,), 575, dtype=torch.int32, device=cuda_device)
     before = decode_attention_cuda.launches
     attn.attention_decode(cfg, spec, p, x, rows, positions, cache)
-    assert decode_attention_cuda.launches == before
+    assert decode_attention_cuda.launches == before + 1
+
+
+#: per-row positions of the ring kernel: the kernels phase's rows (at
+#: C-1, a free slot at 0), rows whose ring has wrapped, and a mix
+PER_ROW = [
+    (4, 32, 32, 576, 96, (520, 37, 0, 575), None),      # phi3 decode
+    (4, 32, 32, 576, 96, (600, 1151, 3, 575), None),    # wrapped rows
+    (4, 32, 32, 576, 112, (511, 0, 0, 300), None),      # zamba2, free rows
+    (3, 16, 8, 64, 256, (63, 64, 200), 50.0),           # gemma2-like, cap
+    (2, 4, 2, 64, 32, (0, 10), None),                   # one valid slot
+    (2, 4, 2, 10, 32, (7, 12), 30.0),                   # C below a split
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,hq,hkv,c,d,rows,cap", PER_ROW)
+def test_decode_kernel_per_row_pos_matches_plain_on_card(cuda_device, dtype,
+                                                         b, hq, hkv, c, d,
+                                                         rows, cap):
+    """A device (B,) pos: each row at its own position in one launch,
+    against the plain version with the same (B,) pos and, row by row,
+    against the scalar path at batch 1 (another split, so within the
+    tolerance); twice, for the tickets."""
+    g = torch.Generator(device=cuda_device).manual_seed(9)
+
+    def rnd(*shape):
+        return torch.randn(*shape, device=cuda_device, generator=g).to(dtype)
+
+    q, k, v = rnd(b, hq, d), rnd(b, c, hkv, d), rnd(b, c, hkv, d)
+    kw = dict(scale=d ** -0.5, logit_cap=cap)
+    pos = torch.tensor(rows, dtype=torch.int32, device=cuda_device)
+    ref = tref.decode_attention_ref(q, k.transpose(1, 2), v.transpose(1, 2),
+                                    pos, **kw)
+    tol = CUDA_TOL[dtype]
+    for _ in range(2):
+        before = decode_attention_cuda.launches
+        out = decode_attention_cuda(q, k, v, pos, **kw)
+        torch.cuda.synchronize()
+        assert decode_attention_cuda.launches == before + 1
+        torch.testing.assert_close(out.float(), ref.float(), atol=tol,
+                                   rtol=tol)
+    for i, r in enumerate(rows):
+        one = decode_attention_cuda(q[i:i + 1], k[i:i + 1], v[i:i + 1], r,
+                                    **kw)
+        torch.testing.assert_close(out[i:i + 1].float(), one.float(),
+                                   atol=tol, rtol=tol)
+    # int64 positions, and one 0-dim tensor for every row, stay on the card
+    out64 = decode_attention_cuda(q, k, v, pos.long(), **kw)
+    torch.testing.assert_close(out64, out, atol=0, rtol=0)
+    same = decode_attention_cuda(q, k, v, pos[0], **kw)
+    torch.testing.assert_close(
+        same, decode_attention_cuda(q, k, v, rows[0], **kw), atol=0, rtol=0)
+
+
+@pytest.mark.cuda
+def test_decode_kernel_refuses_positions_it_cannot_read(cuda_device):
+    q = torch.zeros(2, 4, 32, device=cuda_device)
+    k = torch.zeros(2, 64, 2, 32, device=cuda_device)
+    kw = dict(scale=0.1)
+    for bad in (torch.tensor([1, 2]),                          # on the host
+                torch.tensor([1, 2, 3], device=cuda_device),   # not (B,)
+                torch.tensor([1.0, 2.0], device=cuda_device)):  # not integer
+        with pytest.raises(ValueError):
+            decode_attention_cuda(q, k, k, bad, **kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_decode_per_row_pos_takes_the_kernel(cuda_device, dtype):
+    """phi3's attention at full width with a (B,) pos, the continuous
+    scheduler's decode (rows at 520, 37, a free slot at 0, 575): each call
+    launches the ring kernel once, writes the cache as the plain path does
+    and matches its output after ``wo``."""
+    cfg = REGISTRY["phi3-mini-3.8b"]
+    spec = cfg.segments[0].pattern[0]
+    g = torch.Generator(device=cuda_device).manual_seed(8)
+    p = attn.init_attn_params(cfg, spec, dtype, cuda_device, g)
+    b, max_seq = 4, 576
+    cache = attn.init_attn_cache(cfg, spec, b, max_seq, dtype, cuda_device)
+    for t in cache.values():
+        t.copy_(torch.randn(t.shape, device=cuda_device, generator=g))
+    tol = 1e-4 if dtype == torch.float32 else CUDA_TOL[dtype]
+    for rows in ((520, 37, 0, 575), (521, 38, 1, 576)):
+        pos = torch.tensor(rows, dtype=torch.int32, device=cuda_device)
+        x = torch.randn(b, 1, cfg.d_model, device=cuda_device,
+                        generator=g).to(dtype)
+        positions = attn._rope_positions(pos, b, cuda_device)
+        plain_cache = {n: t.clone() for n, t in cache.items()}
+        before = decode_attention_cuda.launches
+        with use_attention_impl("plain"):
+            plain, _ = attn.attention_decode(cfg, spec, p, x, pos, positions,
+                                             plain_cache)
+        assert decode_attention_cuda.launches == before
+        out, _ = attn.attention_decode(cfg, spec, p, x, pos, positions, cache)
+        torch.cuda.synchronize()
+        assert decode_attention_cuda.launches == before + 1
+        for n in cache:
+            assert torch.equal(cache[n], plain_cache[n])
+        torch.testing.assert_close(out.float(), plain.float(), atol=tol,
+                                   rtol=tol)
 
 
 def _ssd_inputs(device, b, s, h, p, n, bc_dtype, shared_bc, seed=3):

@@ -19,7 +19,13 @@ names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
 for name in names:
     importlib.import_module(name)
 for name in ("repro_torch.models.ssm", "repro_torch.kernels.ssd_scan",
-             "repro_torch.configs.mamba2_370m", "repro_torch.configs.zamba2_7b"):
+             "repro_torch.configs.mamba2_370m", "repro_torch.configs.zamba2_7b",
+             *(f"repro_torch.core.{m}" for m in (
+                 "ir", "costmodel", "lifetime", "memsim", "timeline",
+                 "schedule", "allocator", "insertion", "planner", "tracer")),
+             "repro_torch.slo.policy", "repro_torch.obs.metrics",
+             *(f"repro_torch.sched.{m}" for m in (
+                 "requests", "queue", "prefetch", "scheduler"))):
     assert name in names, name
 assert "repro" not in sys.modules, "the JAX package was imported"
 assert not any(m == "jax" or m.startswith("jax.") for m in sys.modules
@@ -34,7 +40,7 @@ def test_every_port_module_imports_without_jax():
                                         "PATH": "/usr/bin:/bin"},
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
-    assert int(res.stdout.strip().splitlines()[-1]) >= 25
+    assert int(res.stdout.strip().splitlines()[-1]) >= 45
 
 
 _JAX_PACKAGE_IMPORT = re.compile(
@@ -45,7 +51,7 @@ _JAX_PACKAGE_IMPORT = re.compile(
 def test_no_port_file_imports_the_jax_package():
     files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
                                           ROOT / "tests" / "test_torch_cuda.py"]
-    assert len(files) > 25
+    assert len(files) > 45
     offenders = [f"{f.relative_to(ROOT)}: {m.group(0).strip()}"
                  for f in files
                  for m in _JAX_PACKAGE_IMPORT.finditer(f.read_text())]

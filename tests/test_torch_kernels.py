@@ -25,6 +25,7 @@ from repro.kernels.paged_attention import (
     paged_decode_attention_pallas,
 )
 from repro.kernels.ssd_scan import ssd_scan_pallas
+from repro.models import attention as jax_attn
 from repro_torch.kernels import build
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
@@ -266,7 +267,8 @@ def _split_k_merge(q, k, v, valid, bounds, *, scale, logit_cap=None):
     bounds[i + 1]) of the C token rows keeps its own (m, l, acc) over its
     rows (rows where ``valid`` is False score NEG_INF, as in the kernels),
     then the merge rescales by exp(m_i - m), sums and divides (l == 0 ->
-    1). q (B,Hq,D), k/v (B,Hkv,C,D), valid (C,) bool → (B,Hq,D), fp32."""
+    1). q (B,Hq,D), k/v (B,Hkv,C,D), valid (C,) bool, or (B,C) for rows at
+    their own positions → (B,Hq,D), fp32."""
     b, hq, d = q.shape
     hkv = k.shape[1]
     qf = q.float().reshape(b, hkv, hq // hkv, d) * scale
@@ -275,7 +277,9 @@ def _split_k_merge(q, k, v, valid, bounds, *, scale, logit_cap=None):
         sc = torch.einsum("bkgd,bkcd->bkgc", qf, k[:, :, lo:hi].float())
         if logit_cap is not None:
             sc = logit_cap * torch.tanh(sc / logit_cap)
-        sc = torch.where(valid[lo:hi], sc, tref.NEG_INF)
+        ok = valid[..., lo:hi]
+        sc = torch.where(ok[:, None, None, :] if ok.dim() == 2 else ok, sc,
+                         tref.NEG_INF)
         m = sc.max(dim=-1).values
         p = torch.exp(sc - m[..., None])
         ms.append(m)
@@ -291,10 +295,12 @@ def _split_k_merge(q, k, v, valid, bounds, *, scale, logit_cap=None):
 
 def _split_k_decode(q, k, v, pos, bounds, *, scale, logit_cap=None):
     """The ring kernel's split-K (:func:`_split_k_merge`) with the ring's
-    validity at ``pos``: slot j holds token pos - ((pos - j) mod C)."""
+    validity at ``pos`` (an int, or a (B,) tensor read per row): slot j
+    holds token pos - ((pos - j) mod C)."""
     c = k.shape[2]
     j = torch.arange(c)
-    valid = (pos - torch.remainder(pos - j, c)) >= 0
+    p = pos if isinstance(pos, int) else pos[:, None]
+    valid = (p - torch.remainder(p - j, c)) >= 0
     return _split_k_merge(q, k, v, valid, bounds, scale=scale,
                           logit_cap=logit_cap)
 
@@ -342,6 +348,84 @@ def test_split_k_edges_match_both_refs(c, pos, split, cap):
     if pos < 0:
         mean = np.repeat(v.mean(axis=2), 2, axis=1)   # (B, Hq, D), G = 2
         np.testing.assert_allclose(out.numpy(), mean, atol=1e-5)
+
+
+def _jax_rows(q, k, v, rows, **kw):
+    """JAX's oracle row by row, each row at its own scalar position."""
+    return jnp.concatenate([jref.decode_attention_ref(
+        jnp.asarray(q[i:i + 1]), jnp.asarray(k[i:i + 1]),
+        jnp.asarray(v[i:i + 1]), jnp.int32(r), **kw)
+        for i, r in enumerate(rows)])
+
+
+#: (C, per-row positions): a row at C - 1, a free slot decoded at 0 (one
+#: valid slot), rows whose ring has wrapped, rows mid-ring
+PER_ROW = [(576, (520, 37, 0, 575)), (576, (600, 1151, 3, 575)),
+           (64, (0, 63, 64, 200)), (10, (7, 12, 0, 9)), (48, (20, 47, 5, 96))]
+
+
+@pytest.mark.parametrize("cap", [None, 30.0])
+@pytest.mark.parametrize("c,rows", PER_ROW)
+def test_decode_plain_per_row_pos_matches_jax(c, rows, cap):
+    """``decode_attention_ref`` at a (B,) pos against JAX's oracle row by
+    row and against ``attention_decode``'s masking math (its per-row
+    ``_ring_valid_mask``); each row equals the port's own scalar call."""
+    rng = np.random.default_rng(25)
+    b, hq, hkv, d = len(rows), 4, 2, 16
+    q, k, v = (_randn(rng, b, hq, d), _randn(rng, b, hkv, c, d),
+               _randn(rng, b, hkv, c, d))
+    kw = dict(scale=d ** -0.5, logit_cap=cap)
+    t = [torch.from_numpy(x) for x in (q, k, v)]
+    pos = torch.tensor(rows, dtype=torch.int32)
+    out = tref.decode_attention_ref(*t, pos, **kw)
+    _close(out, _jax_rows(q, k, v, rows, **kw))
+    valid = np.asarray(jax_attn._ring_valid_mask(jnp.asarray(rows), c))
+    assert valid.shape == (b, c)
+    assert valid.sum(axis=1).tolist() == [min(r + 1, c) for r in rows]
+    sc = np.einsum("bkgd,bkcd->bkgc", q.reshape(b, hkv, hq // hkv, d) *
+                   kw["scale"], k)
+    if cap is not None:
+        sc = cap * np.tanh(sc / cap)
+    sc = np.where(valid[:, None, None, :], sc, jref.NEG_INF)
+    pr = np.exp(sc - sc.max(-1, keepdims=True))
+    pr /= pr.sum(-1, keepdims=True)
+    math = np.einsum("bkgc,bkcd->bkgd", pr, v).reshape(b, hq, d)
+    np.testing.assert_allclose(out.numpy(), math, atol=ATOL, rtol=0)
+    for i, r in enumerate(rows):
+        one = tref.decode_attention_ref(*(x[i:i + 1] for x in t), r, **kw)
+        torch.testing.assert_close(out[i:i + 1], one, atol=0, rtol=0)
+    # the model-layout wrapper on the CPU: the same plain version
+    wrapped = tops.decode_attention(t[0][:, None], t[1].transpose(1, 2),
+                                    t[2].transpose(1, 2), pos, **kw)
+    torch.testing.assert_close(wrapped[:, 0], out, atol=0, rtol=0)
+
+
+@pytest.mark.parametrize("cap", [None, 30.0])
+@pytest.mark.parametrize("split", [16, 64])
+@pytest.mark.parametrize("c,rows", PER_ROW)
+def test_split_k_per_row_pos_matches_both_refs(c, rows, split, cap):
+    """The ring kernel's split-K with each row at its own position, as the
+    card cuts the ring (splits sized by C alone): a split may hold valid
+    slots for one row and none for another, and a row at pos 0 has every
+    split masked but the first one's first slot."""
+    rng = np.random.default_rng(26)
+    b, hq, hkv, d = len(rows), 4, 2, 16
+    q, k, v = (_randn(rng, b, hq, d), _randn(rng, b, hkv, c, d),
+               _randn(rng, b, hkv, c, d))
+    kw = dict(scale=d ** -0.5, logit_cap=cap)
+    t = [torch.from_numpy(x) for x in (q, k, v)]
+    pos = torch.tensor(rows, dtype=torch.int32)
+    bounds = list(range(0, c, split)) + [c]
+    out = _split_k_decode(*t, pos, bounds, **kw)
+    np.testing.assert_allclose(
+        out.numpy(), tref.decode_attention_ref(*t, pos, **kw).numpy(),
+        atol=1e-5, rtol=0)
+    _close(out, _jax_rows(q, k, v, rows, **kw), atol=1e-5)
+    if 0 in rows:   # one valid slot: the row's output is v at slot 0
+        i = rows.index(0)
+        np.testing.assert_allclose(
+            out[i].numpy(), np.repeat(v[i, :, 0], hq // hkv, axis=0),
+            atol=1e-6)
 
 
 def _paged_split_k(q, kp, vp, table, kt, vt, tail_len, split, *, scale,

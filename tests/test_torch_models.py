@@ -84,7 +84,7 @@ def _close(t, j, atol=ATOL):
                                rtol=0)
 
 
-def _close_cache(tcache, jcache):
+def _close_cache(tcache, jcache, atol=ATOL):
     t_leaves = jax.tree.leaves(jax.tree.map(np.asarray, jcache))
     flat = []
 
@@ -102,7 +102,7 @@ def _close_cache(tcache, jcache):
     assert len(flat) == len(t_leaves)
     for t, j in zip(flat, t_leaves):
         assert tuple(t.shape) == j.shape
-        _close(t, j)
+        _close(t, j, atol)
 
 
 def test_convert_copies_and_reads_bfloat16_bits():
@@ -270,10 +270,123 @@ def test_routed_decode_matches_jax_across_the_ring_wrap(routed_decode, name,
 
 @pytest.mark.parametrize("name", list(ROUTED))
 def test_per_row_pos_keeps_the_plain_decode(routed_decode, name):
-    """A (B,) pos (rows at their own indices) and a 0-dim tensor pos keep
-    the plain path under "kernel": the kernel takes one host scalar."""
+    """A (B,) pos (rows at their own indices) and a 0-dim tensor pos under
+    "kernel" go through ``ops.decode_attention`` too, handed over as
+    tensors, and match JAX's ``attention_decode``: the plain decode is
+    left only under ``"plain"``."""
     c = ROUTED[name][2]
     rows = np.array([c + 3, c - 2], np.int32)
     _decode_both(name, rows, torch.from_numpy(rows))
     _decode_both(name, c + 1, torch.tensor(c + 1, dtype=torch.int32))
-    assert routed_decode == []
+    _decode_both(name, np.array([0, c - 1], np.int32),
+                 torch.tensor([0, c - 1], dtype=torch.int32))
+    assert len(routed_decode) == 3
+    assert all(isinstance(p, torch.Tensor) for p in routed_decode)
+    assert routed_decode[0].tolist() == rows.tolist()
+    assert int(routed_decode[1]) == c + 1
+    assert routed_decode[2].tolist() == [0, c - 1]
+
+
+# ---------------------------------------------------------------------------
+# chunked prefill
+# ---------------------------------------------------------------------------
+
+CHUNK_ATOL = 1e-5
+
+
+@pytest.mark.parametrize("chunk", [4, 16, 32])
+@pytest.mark.parametrize("name", ["phi3", "gemma2", "gemma2-windowed"])
+def test_prefill_chunk_matches_jax(name, chunk):
+    """A 27-token prompt prefilled chunk by chunk into a 32-slot cache: the
+    last valid token's logits and every cache leaf agree with JAX's
+    ``prefill_chunk`` after each chunk (fp32, atol 1e-5). The last chunk is
+    padded at every chunk size; gemma2-windowed's window-6 local layer
+    wraps its 6-slot ring inside chunks of 4 and holds only the last 6 of a
+    chunk of 16 or 32. The cache left at the end equals a whole-prompt
+    ``prefill``'s."""
+    jm, jp, tm, tp = _pair(name)
+    prompt, max_seq = 27, 32
+    toks = _tokens(tm.cfg, 1, prompt, seed=12)
+    jcache = jm.init_cache(1, max_seq)
+    tcache = tm.init_cache(1, max_seq, device=CPU)
+    for off in range(0, prompt, chunk):
+        valid = min(chunk, prompt - off)
+        t = np.zeros((1, chunk), np.int32)
+        t[0, :valid] = toks[0, off:off + valid]
+        jl, jcache = jm.prefill_chunk(jp, {"tokens": jnp.asarray(t)},
+                                      jnp.int32(off), jnp.int32(valid),
+                                      jcache)
+        tl, tcache = tm.prefill_chunk(tp, {"tokens": torch.from_numpy(t)},
+                                      off, valid, tcache)
+        assert tl.shape == (1, 1, tm.cfg.padded_vocab)
+        _close(tl, jl, atol=CHUNK_ATOL)
+        _close_cache(tcache, jcache, atol=CHUNK_ATOL)
+    whole = tm.init_cache(1, max_seq, device=CPU)
+    wl, whole = tm.prefill(tp, {"tokens": torch.from_numpy(toks)}, whole)
+    _close(tl, wl.numpy(), atol=CHUNK_ATOL)
+    _close_cache(tcache, jax.tree.map(np.asarray, _as_jax_tree(whole)),
+                 atol=CHUNK_ATOL)
+
+
+def _as_jax_tree(tcache):
+    """A port cache as the nested dict/list of numpy arrays JAX flattens in
+    the same (sorted-key) order."""
+    if isinstance(tcache, dict):
+        return {k: _as_jax_tree(v) for k, v in tcache.items()}
+    if isinstance(tcache, list):
+        return [_as_jax_tree(v) for v in tcache]
+    return tcache.numpy()
+
+
+@pytest.mark.parametrize("offset", [3, 5, 6, 11])
+def test_prefill_chunk_at_a_ring_wrapping_offset_matches_jax(offset):
+    """gemma2-windowed's window-6 ring entered mid-window: one chunk of 8
+    with 7 valid tokens at offsets where the chunk wraps the ring, over a
+    cache holding the tokens before it (written by a first chunk)."""
+    jm, jp, tm, tp = _pair("gemma2-windowed", seed=1)
+    toks = _tokens(tm.cfg, 1, offset + 7, seed=13)
+    jcache = jm.init_cache(1, 32)
+    tcache = tm.init_cache(1, 32, device=CPU)
+    first = np.zeros((1, 16), np.int32)
+    first[0, :offset] = toks[0, :offset]
+    jl, jcache = jm.prefill_chunk(jp, {"tokens": jnp.asarray(first)},
+                                  jnp.int32(0), jnp.int32(offset), jcache)
+    tl, tcache = tm.prefill_chunk(tp, {"tokens": torch.from_numpy(first)},
+                                  0, offset, tcache)
+    _close(tl, jl, atol=CHUNK_ATOL)
+    t = np.zeros((1, 8), np.int32)
+    t[0, :7] = toks[0, offset:offset + 7]
+    jl, jcache = jm.prefill_chunk(jp, {"tokens": jnp.asarray(t)},
+                                  jnp.int32(offset), jnp.int32(7), jcache)
+    tl, tcache = tm.prefill_chunk(tp, {"tokens": torch.from_numpy(t)},
+                                  offset, 7, tcache)
+    _close(tl, jl, atol=CHUNK_ATOL)
+    _close_cache(tcache, jcache, atol=CHUNK_ATOL)
+
+
+def test_ring_write_at_drops_padding_and_keeps_the_tail():
+    buf = torch.zeros(1, 6, 1)
+    vals = torch.arange(1.0, 11.0).reshape(1, 10, 1)
+    jbuf = jax_attn._ring_write_at(jnp.zeros((1, 6, 1)), jnp.asarray(vals),
+                                   jnp.int32(4), jnp.int32(9))
+    torch_attn._ring_write_at(buf, vals, 4, 9)
+    np.testing.assert_array_equal(buf.numpy(), np.asarray(jbuf))
+    # valid tokens 4..12 (values 1..9); the last 6, tokens 7..12 (values
+    # 4..9), land at slots t % 6; the padded 10th value is never written
+    assert buf[0, :, 0].tolist() == [9.0, 4.0, 5.0, 6.0, 7.0, 8.0]
+
+
+def test_cache_specs_allocate_nothing_and_match_init_cache():
+    _, _, tm, _ = _pair("gemma2-windowed")
+    specs = tm.cache_specs(2, 32, torch.bfloat16)
+    real = tm.init_cache(2, 32, torch.bfloat16, device=CPU)
+    flat_s, flat_r = [], []
+    for tree, out in ((specs, flat_s), (real, flat_r)):
+        for seg in tree["segments"]:
+            for layer in seg.values():
+                out.extend(layer[k] for k in sorted(layer))
+    assert [t.device.type for t in flat_s] == ["meta"] * len(flat_r)
+    assert [(t.shape, t.dtype) for t in flat_s] == \
+        [(t.shape, t.dtype) for t in flat_r]
+    assert tm.supports_chunked_prefill()
+    assert not _pair("mamba2")[2].supports_chunked_prefill()
