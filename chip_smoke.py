@@ -49,6 +49,18 @@ non-zero exit):
    rules. Logs per mode: steps, tok/s, ms per step and decode step, TTFT
    in steps and ms, the host ms per step of each scheduler phase, fetches
    and plan lead, waits, pool bytes per step, peak memory.
+   Then two chunked modes. slo-overload: 16 requests, 35 % interactive
+   with a 10-step TTFT deadline, at 3x the service rate, FIFO resident
+   against SLO admission resident and ``kv_offload``: the two SLO runs
+   agree in tokens and ``SchedStats``, preempt at least once and resume
+   every preempted request, and on the virtual clock SLO's goodput and
+   interactive TTFT attainment are at least FIFO's. prefix: after one warm
+   request per family, 12 requests behind two 256-token system prompts
+   with the prefix cache off, on (resident) and on (``kv_offload``, the
+   scheduler's pool): the two on runs agree, off minus on prefill tokens
+   is the hit tokens (12 hits, 3072 tokens unless a cached page was
+   evicted), and one hit request's first-token logits pass the chunked
+   logit rule on and off.
 5. paged   — ``PagedKVCache.attend_fused`` (the paged-decode kernel over
    pool pages) against ``attend`` (the gather path) at phi3's attention
    widths, with every page selected and then top-4 of an 8-page budget.
@@ -116,6 +128,19 @@ SCHED_TRACE = dict(n_requests=8, rate=0.5, prompt_lens=(64, 512),
                    prompt_quantum=64, new_tokens=(16, 64), seed=0)
 SCHED_CHUNK, SCHED_PREFILL_TOKENS = 128, 256
 SCHED_ROWS = (520, 37, 0, 575)
+# the sched phase's slo-overload mode: interactive chat (35 %, a 10-step
+# TTFT deadline) arriving into a batch backlog at 3x the service rate,
+# 4 slots / (288 / 128 chunks + 40 decode steps) = 4 / 42.25 requests a step
+SLO_TRACE = dict(n_requests=16, rate=0.284, prompt_lens=(64, 512),
+                 prompt_quantum=64, new_tokens=(16, 64),
+                 interactive_fraction=0.35, seed=3)
+SLO_TTFT_DEADLINE = 10.0
+# the sched phase's prefix mode: two families of users behind a 256-token
+# system prompt, cached in 32-token pages
+PREFIX_TRACE = dict(n_requests=12, rate=0.5, prompt_lens=(64, 256),
+                    prompt_quantum=32, new_tokens=(16, 64),
+                    n_prefix_families=2, prefix_len=256, seed=0)
+PREFIX_PAGE = 32
 
 FLASH = {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -980,13 +1005,14 @@ def phase_sched(torch, dev, kernels, model, params) -> None:
         new_tokens=[r.max_new_tokens for r in trace],
         arrivals=[round(r.arrival, 3) for r in trace], chunk=SCHED_CHUNK,
         prefill_tokens_per_step=SCHED_PREFILL_TOKENS, row_bytes=row)
-    runs = {mode: sched_run(torch, dev, kernels, model, params, trace_kw,
-                            mode, kw, row, n_attn)
-            for mode, kw in SCHED_MODES}
-
-    def same_work(stats):
-        return {k: v for k, v in stats.items()
-                if k not in ("pages_parked", "cold_spills")}
+    runs = {}
+    for mode, kw in SCHED_MODES:
+        pool = None
+        if kw.get("kv_offload"):
+            pool = ({"device_capacity": int(1.5 * row)}
+                    if mode.endswith("spill") else {})
+        runs[mode] = sched_run(torch, dev, kernels, model, params, trace,
+                               mode, kw, n_attn, pool=pool)
 
     for mode, run in runs.items():
         st = run["stats"]
@@ -998,7 +1024,7 @@ def phase_sched(torch, dev, kernels, model, params) -> None:
                  ("chunked", "chunked-kv_offload")):
         assert runs[a]["tokens"] == runs[b]["tokens"], \
             f"{b} tokens differ from {a}"
-        assert same_work(runs[a]["stats"]) == same_work(runs[b]["stats"]), \
+        assert _same_work(runs[a]["stats"]) == _same_work(runs[b]["stats"]), \
             (a, b, runs[a]["stats"], runs[b]["stats"])
     assert runs["kv_offload-spill"]["stats"]["cold_spills"] > 0
     whole, chunked = runs["resident"]["tokens"], runs["chunked"]["tokens"]
@@ -1010,35 +1036,188 @@ def phase_sched(torch, dev, kernels, model, params) -> None:
         first_tokens_equal=sum(whole[s][0] == chunked[s][0] for s in whole))
     check_sched_logits(torch, model, params, trace)
     check_mixed_decode_logits(torch, model, params, n_attn)
+    sched_slo_overload(torch, dev, kernels, model, params, n_attn)
+    sched_prefix(torch, dev, kernels, model, params, n_attn)
 
 
-def sched_run(torch, dev, kernels, model, params, trace_kw, mode, kw, row,
-              n_attn):
-    """One ``ContinuousScheduler.run`` of the trace in one mode; returns
-    its tokens (by request seed) and ``SchedStats``. Every entry point the
-    scheduler calls is wrapped to count its kernel launches per call (no
-    launch, no sync of its own); the step loop is timed on the host
-    clock."""
+def _same_work(stats):
+    """``SchedStats`` but what differs between resident and ``kv_offload``
+    by design (pages parked, cold spills)."""
+    return {k: v for k, v in stats.items()
+            if k not in ("pages_parked", "cold_spills")}
+
+
+def _matching(a, b):
+    """Tokens equal at the same index, over the requests of two runs."""
+    return sum(int(x == y) for seed in a for x, y in zip(a[seed], b[seed]))
+
+
+def sched_slo_overload(torch, dev, kernels, model, params, n_attn) -> None:
+    """The slo-overload mode: ``SLO_TRACE`` chunked, FIFO resident against
+    SLO admission resident and ``kv_offload``. Holds: the two SLO runs
+    agree in tokens and ``SchedStats`` (but pages parked and cold spills);
+    SLO preempts at least once and resumes every preempted request; on the
+    virtual clock SLO's goodput (deadline-met tokens per step) and
+    interactive TTFT attainment are at least FIFO's."""
+    from repro_torch.sched import poisson_trace
+    from repro_torch.slo import SLOConfig, SLOSpec, attainment_summary
+
+    trace = poisson_trace(
+        vocab_size=model.cfg.vocab_size, batch_slo=SLOSpec("batch"),
+        interactive_slo=SLOSpec("interactive",
+                                ttft_deadline=SLO_TTFT_DEADLINE),
+        **SLO_TRACE)
+    log("sched", mode="slo-overload", requests=len(trace),
+        trace=json.dumps(SLO_TRACE), ttft_deadline=SLO_TTFT_DEADLINE,
+        prompt_lens=[r.prompt_len for r in trace],
+        new_tokens=[r.max_new_tokens for r in trace],
+        arrivals=[round(r.arrival, 3) for r in trace],
+        interactive=[int(r.slo.priority_class == "interactive")
+                     for r in trace])
+    chunked = dict(chunk_size=SCHED_CHUNK, prefill_tokens=SCHED_PREFILL_TOKENS)
+    runs = {}
+    for mode, slo, pool in (
+            ("slo-overload-fifo", SLOConfig(), None),
+            ("slo-overload-slo", SLOConfig(enable=True), None),
+            ("slo-overload-slo-kv_offload", SLOConfig(enable=True), {})):
+        kw = dict(chunked, slo=slo, kv_offload=pool is not None)
+        run = sched_run(torch, dev, kernels, model, params, trace, mode, kw,
+                        n_attn, pool=pool)
+        st, served = run["stats"], run["served"]
+        assert st["prefill_tokens"] == sum(r.prompt_len for r in served)
+        assert st["decoded_tokens"] == sum(r.max_new_tokens - 1
+                                           for r in served)
+        att = attainment_summary(run["states"])
+        run["goodput"] = att["met_tokens"] / max(run["now"], 1e-9)
+        run["attainment"] = att["classes"]["interactive"]["ttft_attainment"]
+        log("sched", mode=mode, preemptions=st["preemptions"],
+            resumes=st["resumes"], shed=st["shed"],
+            virtual_steps=run["now"], goodput_tokens=att["met_tokens"],
+            goodput_tokens_per_step=run["goodput"],
+            tokens_per_step=att["tokens"] / max(run["now"], 1e-9),
+            interactive_ttft_attainment=run["attainment"],
+            slo=json.dumps(run["slo"]))
+        runs[mode] = run
+    fifo, slo, kv = runs.values()
+    assert slo["tokens"] == kv["tokens"], "SLO kv_offload tokens differ"
+    assert _same_work(slo["stats"]) == _same_work(kv["stats"]), \
+        (slo["stats"], kv["stats"])
+    assert slo["slo"] == kv["slo"]
+    assert fifo["stats"]["preemptions"] == fifo["stats"]["shed"] == 0
+    assert slo["stats"]["preemptions"] >= 1
+    assert slo["stats"]["resumes"] == slo["stats"]["preemptions"]
+    assert slo["goodput"] >= fifo["goodput"], (slo["goodput"], fifo["goodput"])
+    assert slo["attainment"] >= fifo["attainment"], \
+        (slo["attainment"], fifo["attainment"])
+    log("sched", check="slo-overload: SLO against FIFO (virtual clock)",
+        goodput_tokens_per_step=f"{fifo['goodput']:.4f}->{slo['goodput']:.4f}",
+        interactive_ttft_attainment=(f"{fifo['attainment']:.4f}->"
+                                     f"{slo['attainment']:.4f}"),
+        matching_tokens_slo_vs_fifo=_matching(fifo["tokens"], slo["tokens"]))
+
+
+def sched_prefix(torch, dev, kernels, model, params, n_attn) -> None:
+    """The prefix mode: one warm request per family (the family's prefix
+    and 32 more tokens, 2 new tokens) donates the shared pages, then
+    ``PREFIX_TRACE`` runs chunked with the prefix cache off, on (resident)
+    and on (``kv_offload``, the cache on the scheduler's pool). Holds: the
+    two on runs agree in tokens and counters; off minus on prefill tokens
+    is the hit tokens; every request hits the 256 cached tokens (unless a
+    cached page was evicted, which is logged with the pool's tiers); a
+    cached page is 32 tokens x 32 layers x K,V x 3072 x 2 B; the first
+    hit request's first-token logits pass the chunked logit rule, on and
+    off. Reports the tokens that match between on and off."""
+    import numpy as np
+
+    from repro_torch.sched import Request, poisson_trace
+
+    trace = poisson_trace(vocab_size=model.cfg.vocab_size, **PREFIX_TRACE)
+    plen = PREFIX_TRACE["prefix_len"]
+    families = {}
+    for r in trace:
+        families.setdefault(r.tokens[:plen].tobytes(), r.tokens[:plen])
+    warm = [Request(tokens=np.concatenate([f, np.full(32, 1, np.int32)]),
+                    max_new_tokens=2, seed=5000 + i)
+            for i, f in enumerate(families.values())]
+    log("sched", mode="prefix", requests=len(trace), warm=len(warm),
+        trace=json.dumps(PREFIX_TRACE), page=PREFIX_PAGE,
+        prompt_lens=[r.prompt_len for r in trace],
+        new_tokens=[r.max_new_tokens for r in trace],
+        arrivals=[round(r.arrival, 3) for r in trace])
+    chunked = dict(chunk_size=SCHED_CHUNK, prefill_tokens=SCHED_PREFILL_TOKENS)
+    probe = trace[0]
+    runs = {}
+    for mode, prefix, kv in (("prefix-off", False, False),
+                             ("prefix-on", True, False),
+                             ("prefix-on-kv_offload", True, True)):
+        runs[mode] = sched_run(
+            torch, dev, kernels, model, params, trace, mode,
+            dict(chunked, kv_offload=kv), n_attn,
+            pool={} if prefix else None, prefix=prefix, warm=warm,
+            capture=probe.seed)
+    off, on, kv = runs.values()
+    assert on["tokens"] == kv["tokens"], "prefix kv_offload tokens differ"
+    assert _same_work(on["stats"]) == _same_work(kv["stats"]), \
+        (on["stats"], kv["stats"])
+    assert on["prefix"] == kv["prefix"], (on["prefix"], kv["prefix"])
+    hit = on["stats"]["prefix_hit_tokens"]
+    assert off["stats"]["prefill_tokens"] - on["stats"]["prefill_tokens"] \
+        == hit, (off["stats"], on["stats"])
+    assert off["stats"]["prefix_hits"] == 0
+    evicted = on["prefix"]["invalidations"] + on["prefix"]["evictions"]
+    if evicted:
+        log("sched", check="prefix: cached pages were evicted", pages=evicted,
+            tiers=json.dumps(on["tiers"]))
+    else:
+        assert on["stats"]["prefix_hits"] == len(trace), on["stats"]
+        assert hit == len(trace) * plen, on["stats"]
+    cfg = model.cfg
+    page_bytes = PREFIX_PAGE * n_attn * 2 * cfg.n_kv_heads * cfg.head_dim * 2
+    assert on["page_bytes"] == [page_bytes], (on["page_bytes"], page_bytes)
+    matching = _matching(off["tokens"], on["tokens"])
+    log("sched", check="prefix: tokens, off vs on (reported)",
+        matching=matching, of=sum(len(v) for v in off["tokens"].values()),
+        identical_requests=sum(off["tokens"][s] == on["tokens"][s]
+                               for s in off["tokens"]),
+        prefill_tokens=f"{off['stats']['prefill_tokens']}->"
+                       f"{on['stats']['prefill_tokens']}",
+        prefix_hits=on["stats"]["prefix_hits"], prefix_hit_tokens=hit,
+        cache_pages=on["prefix"]["pages"], page_bytes=page_bytes,
+        cache_bytes=on["cache_bytes"])
+    check_prefix_logits(torch, model, params, probe, warm, off["logits"],
+                        on["logits"], kv["logits"])
+
+
+def sched_run(torch, dev, kernels, model, params, trace, mode, kw, n_attn,
+              *, pool=None, prefix=False, warm=(), capture=None):
+    """One ``ContinuousScheduler.run`` of ``trace`` in one mode; returns
+    its tokens (by request seed), ``SchedStats``, the finished states, the
+    requests not shed and the scheduler's SLO and prefix-cache snapshots.
+    ``pool`` is None (the scheduler's own) or the capacities of a pool on
+    the card; ``prefix`` adds a ``PrefixCacheManager`` on that pool, and
+    ``warm`` requests run first (not counted). ``capture`` is a request
+    seed whose first-token logits are kept. Every entry point the scheduler
+    calls is wrapped to count its kernel launches per call (no launch, no
+    sync of its own); the step loop is timed on the host clock, and a
+    prefix hit's page fetch between two syncs."""
     from repro_torch.kernels import ops
     from repro_torch.kernels.flash_attention import flash_attention_cuda
     from repro_torch.kernels.paged_attention import decode_attention_cuda
     from repro_torch.obs import Tracer
     from repro_torch.pool import default_pool
-    from repro_torch.sched import (
-        ContinuousScheduler, SchedulerConfig, poisson_trace,
-    )
+    from repro_torch.prefix import PrefixCacheManager
+    from repro_torch.sched import SHED, ContinuousScheduler, SchedulerConfig
 
-    pool = None
-    if kw.get("kv_offload"):
-        caps = ({"device_capacity": int(1.5 * row)}
-                if mode.endswith("spill") else {})
-        pool = default_pool(device=dev, **caps)
+    if pool is not None:
+        pool = default_pool(device=dev, **pool)
+    cache = (PrefixCacheManager(pool, page_size=PREFIX_PAGE) if prefix
+             else None)
     # the scheduler's own spans (step phases, row park/restore, prefetch
     # issue) give where a step's host time goes
     tracer = Tracer()
     sched = ContinuousScheduler(model, params, SchedulerConfig(
         max_batch=BATCH, max_seq=MAX_SEQ, cache_dtype=torch.bfloat16, **kw),
-        pool=pool, tracer=tracer)
+        pool=pool, prefix_cache=cache, tracer=tracer)
     calls = {"decode": 0, "prefill": 0, "chunk": 0}
 
     def counted(name, fn, flash, ring):
@@ -1077,7 +1256,31 @@ def sched_run(torch, dev, kernels, model, params, trace_kw, mode, kw, row,
         return out
 
     sched._decode_active, sched.step = timed_decode, timed_step
-    trace = poisson_trace(**trace_kw)
+    fetch_s, logits = [], {}
+    if prefix:
+        fetch = sched._fetch_prefix_pages
+
+        def timed_fetch(pages):
+            out, t = synced_s(torch, lambda: fetch(pages))
+            fetch_s.append(t)
+            return out
+
+        sched._fetch_prefix_pages = timed_fetch
+    if capture is not None:
+        finish = sched._finish_prefill
+
+        def captured(state, lg, row):
+            if state.request.seed == capture:
+                logits[capture] = lg[:, 0].float().clone()
+            return finish(state, lg, row)
+
+        sched._finish_prefill = captured
+    sched.run(list(warm))
+    base = dataclasses.asdict(sched.stats)
+    fetch_s.clear()
+    calls.update(decode=0, prefill=0, chunk=0)
+    decode_s.clear()
+    steps.clear()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     # the main path: counts set to 0 just before, read just after
@@ -1087,7 +1290,9 @@ def sched_run(torch, dev, kernels, model, params, trace_kw, mode, kw, row,
     peak = torch.cuda.max_memory_allocated()
     for name, n in counts.items():
         kernels[name]["launches"] += n
-    st = dataclasses.asdict(sched.stats)
+    st = {k: v - base[k] for k, v in dataclasses.asdict(sched.stats).items()}
+    states = [sched.finished[r.req_id] for r in trace]
+    served = [r for r, state in zip(trace, states) if state.status != SHED]
     assert calls["decode"] == len(decode_s) > 0
     assert calls["prefill"] == (0 if kw.get("chunk_size") else len(trace))
     assert calls["chunk"] == st["prefill_chunks"]
@@ -1095,14 +1300,15 @@ def sched_run(torch, dev, kernels, model, params, trace_kw, mode, kw, row,
                       "paged_decode_attention": 0,
                       "decode_attention": n_attn * calls["decode"],
                       "ssd_scan": 0}, (mode, counts, calls)
+    assert st["shed"] == len(trace) - len(served)
     tokens = {r.seed: out[r.req_id].tolist() for r in trace}
-    for r in trace:
+    for r in served:
         assert len(tokens[r.seed]) == r.max_new_tokens
         assert all(0 <= t < model.cfg.vocab_size for t in tokens[r.seed])
     # TTFT: from the start of the first step at or after the arrival to the
     # end of the step that emitted the first token
     ttft_steps, ttft_ms = [], []
-    for r in trace:
+    for r in served:
         state = sched.finished[r.req_id]
         ttft_steps.append(state.t_first_token - r.arrival)
         t0 = next(t for now, t, _ in steps if now >= r.arrival)
@@ -1141,13 +1347,35 @@ def sched_run(torch, dev, kernels, model, params, trace_kw, mode, kw, row,
             spans[e.name] = spans.get(e.name, 0.0) + e.dur
     log("sched", mode=mode, host_ms_per_step=json.dumps(
         {k: round(v / st["steps"] * 1e3, 2) for k, v in sorted(spans.items())}))
+    result = {"tokens": tokens, "stats": st, "states": states,
+              "served": served, "now": sched.now, "slo": sched.slo_snapshot(),
+              "prefix": sched.prefix_stats(), "logits": logits}
+    if prefix:
+        page_bytes = {}   # cached page (index node) -> bytes
+        for key, entry in pool.entries.items():
+            if key.startswith(cache._ns + "/"):
+                node = key.split("/", 2)[1]
+                page_bytes[node] = page_bytes.get(node, 0) + entry.nbytes
+        result["page_bytes"] = sorted(set(page_bytes.values()))
+        result["cache_bytes"] = sum(page_bytes.values())
+        result["tiers"] = {t: pool.occupancy(t)[0]
+                           for t in pool.spill_order}
+        log("sched", mode=mode, prefix=json.dumps(result["prefix"]),
+            cache_pages=len(page_bytes), cache_bytes=result["cache_bytes"],
+            page_bytes=result["page_bytes"], tiers=json.dumps(result["tiers"]),
+            hit_fetches=len(fetch_s),
+            hit_fetch_ms_total=f"{sum(fetch_s) * 1e3:.2f}",
+            hit_fetch_ms_mean=(f"{sum(fetch_s) / len(fetch_s) * 1e3:.3f}"
+                               if fetch_s else "n/a"))
     sched.close()
+    if cache is not None:
+        cache.close()
     if pool is not None:
         assert pool.snapshot()["reserved"] == 0
         pool.close()
     del sched
     torch.cuda.empty_cache()
-    return {"tokens": tokens, "stats": st}
+    return result
 
 
 def check_sched_logits(torch, model, params, trace) -> None:
@@ -1201,6 +1429,69 @@ def check_sched_logits(torch, model, params, trace) -> None:
         assert torch.allclose(c32, p32, atol=1e-4, rtol=1e-4), (i, err32)
         assert e_chunk <= e_plain + 2e-2, (i, e_chunk, e_plain)
     del params32
+    torch.cuda.empty_cache()
+
+
+def check_prefix_logits(torch, model, params, probe, warm, off, on,
+                        on_kv) -> None:
+    """The first-token logits of one prefix-hit request by the chunked
+    rule of :func:`check_sched_logits`. bf16, from the scheduler's runs:
+    cache off, on and on with ``kv_offload`` each no further from the
+    fp32 whole-prompt plain path than the bf16 plain path plus 2e-2. fp32:
+    the hit path replayed by hand — the warm request's rows chunk-
+    prefilled, its first ``prefix_len`` positions copied into a new row,
+    the probe's prefill resumed there — within 1e-4 of the fp32
+    whole-prompt plain path."""
+    from repro_torch.models.runtime import use_attention_impl
+
+    dev = next(_leaves(params)).device
+    plen = PREFIX_TRACE["prefix_len"]
+    fam = next(w for w in warm
+               if bytes(w.tokens[:plen]) == bytes(probe.tokens[:plen]))
+
+    def chunked(weights, tokens, cache, start):
+        toks = torch.from_numpy(tokens)[None].to(dev)
+        for off in range(start, toks.shape[1], SCHED_CHUNK):
+            valid = min(SCHED_CHUNK, toks.shape[1] - off)
+            t = torch.zeros(1, SCHED_CHUNK, dtype=torch.int32, device=dev)
+            t[:, :valid] = toks[:, off:off + valid]
+            logits, cache = model.prefill_chunk(weights, {"tokens": t}, off,
+                                                valid, cache)
+        return logits[:, 0], cache
+
+    def whole(weights, dtype):
+        toks = torch.from_numpy(probe.tokens)[None].to(dev)
+        cache = model.init_cache(1, MAX_SEQ, dtype, dev)
+        with use_attention_impl("plain"):
+            return model.prefill(weights, {"tokens": toks}, cache)[0][:, 0]
+
+    params32 = _tree_map(lambda t: t.float(), params)
+    with torch.inference_mode():
+        p32 = whole(params32, torch.float32)
+        p16 = whole(params, torch.bfloat16)
+        _, donor = chunked(params32, fam.tokens,
+                           model.init_cache(1, MAX_SEQ, torch.float32, dev), 0)
+        row = model.init_cache(1, MAX_SEQ, torch.float32, dev)
+        for r, d in zip(_leaves(row), _leaves(donor)):
+            r[:, :, :plen] = d[:, :, :plen]
+        c32, _ = chunked(params32, probe.tokens, row, plen)
+    del params32, donor, row
+    err32 = (c32 - p32).abs().max().item()
+    e_plain = (p16.float() - p32).abs().max().item()
+    errs = {name: (lg[probe.seed] - p32).abs().max().item()
+            for name, lg in (("off", off), ("on", on), ("on_kv", on_kv))}
+    log("sched", check="prefix: hit request's first-token logits against "
+        "whole-prompt fp32 plain", prompt_len=probe.prompt_len,
+        hit_tokens=plen, fp32_replayed_hit_max_abs_err=f"{err32:.3e}",
+        fp32_tol=1e-4, bf16_plain_max_abs_err=f"{e_plain:.3e}",
+        tol=f"plain+2e-2={e_plain + 2e-2:.3e}",
+        **{f"bf16_{k}_max_abs_err": f"{v:.3e}" for k, v in errs.items()},
+        bf16_on_vs_off_max_abs=(
+            f"{(on[probe.seed] - off[probe.seed]).abs().max().item():.3e}"))
+    assert bool(torch.isfinite(c32).all())
+    assert torch.allclose(c32, p32, atol=1e-4, rtol=1e-4), err32
+    for name, e in errs.items():
+        assert e <= e_plain + 2e-2, (name, e, e_plain)
     torch.cuda.empty_cache()
 
 

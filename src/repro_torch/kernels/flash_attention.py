@@ -33,6 +33,9 @@ def _check_inputs(q, k, v, out, window, logit_cap) -> None:
         if t.device.type != "cuda" or t.device != q.device:
             raise ValueError(f"{name} must be a CUDA tensor on {q.device}, "
                              f"got {t.device}")
+        if t.requires_grad:
+            raise ValueError(f"{name} requires grad; the flash kernel has "
+                             "no backward")
         if t.dtype not in DTYPE_CODES or t.dtype != q.dtype:
             raise TypeError(f"{name}: dtype {t.dtype}; the kernel takes "
                             "float32 or bfloat16, the same for q, k, v")

@@ -91,6 +91,9 @@ def paged_decode_attention_cuda(q: torch.Tensor, k_pages: torch.Tensor,
         if t.device.type != "cuda" or t.device != q.device:
             raise ValueError(f"{name} must be a CUDA tensor on {q.device}, "
                              f"got {t.device}")
+        if t.requires_grad:
+            raise ValueError(f"{name} requires grad; the paged-decode kernel "
+                             "has no backward")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
     for name, t in tensors:
@@ -173,6 +176,9 @@ def decode_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         if t.device.type != "cuda" or t.device != q.device:
             raise ValueError(f"{name} must be a CUDA tensor on {q.device}, "
                              f"got {t.device}")
+        if t.requires_grad:
+            raise ValueError(f"{name} requires grad; the ring-decode kernel "
+                             "has no backward")
         if t.dtype not in DTYPE_CODES or t.dtype != q.dtype:
             raise TypeError(f"{name}: dtype {t.dtype}; the kernel takes "
                             "float32 or bfloat16, the same for q, k, v")

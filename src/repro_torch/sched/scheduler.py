@@ -1,5 +1,5 @@
 """Request-level continuous-batching scheduler with plan-driven KV prefetch
-(the port's copy of ``repro.sched.scheduler``, FIFO admission).
+(the port's copy of ``repro.sched.scheduler``).
 
 The step loop joins and retires sequences **every decode step**
 (continuous batching): a fixed set of ``max_batch`` cache slots holds the
@@ -10,7 +10,11 @@ running requests; each step the scheduler
    worst-case pages (``AdmissionController``); admitted prompts are
    prefilled (batch 1) and scattered into their slot, and their first
    token sampled from the prefill logits exactly as
-   ``ServeEngine.generate`` does;
+   ``ServeEngine.generate`` does. With an enabled ``SLOConfig`` the best
+   ready request (priority class, then earliest TTFT deadline) goes first,
+   certainly-infeasible requests are shed, and a deadline-pressed arrival
+   may preempt (park) a running lower-priority sequence, which resumes
+   when a slot frees;
 
    with **chunked prefill** (``chunk_size`` set) prompts instead advance
    ``chunk_size`` tokens per scheduler step through ``Model.prefill_chunk``
@@ -20,7 +24,9 @@ running requests; each step the scheduler
    sampled when the last chunk lands. Between chunk steps the partial
    batch-1 row cache stays on the request state (resident) or is parked
    page by page through the pool (``kv_offload``), under the ``L{i}.{j}``
-   labels the decode loop parks under;
+   labels the decode loop parks under. With a ``prefix_cache`` an admitted
+   prompt's cached leading pages are copied into its row and prefill
+   starts after them; a retiring prompt donates its full pages;
 2. (``kv_offload``) waits on the fetches the previous step issued, in the
    plan's consumption order, and scatters the pages into the batch cache —
    after the admission and prefill work of step 1, which the transfers
@@ -42,15 +48,14 @@ That is safe because every park stores a copy: a device-tier put copies
 the row on the compute stream before the next decode writes it, and a
 host-tier put copies on the transfer engine's stream after the compute
 stream and returns once the bytes have landed; a fetched page reaches the
-cache only after the compute stream has waited on its copy's event.
+cache only after the compute stream has waited on its copy's event. For
+the same reason a resident DECODE row that is preempted is copied out of
+its slot (the reference keeps a slice, which JAX copies), and prefix pages
+donated from the batch cache are views that the pool's put copies.
 
 Time is a virtual clock (1.0 per step) so arrival traces and latency
 measurements are deterministic; wall-clock throughput is the caller's to
 measure around ``run``.
-
-Not ported yet: SLO-aware admission and preemption (``slo.admission``,
-``slo.preempt``) and the prefix cache (``prefix``); the constructor
-refuses an enabled ``SLOConfig`` and a ``prefix_cache``.
 """
 
 from __future__ import annotations
@@ -71,16 +76,24 @@ from repro_torch.obs.trace import NULL_TRACER
 from repro_torch.offload.kvcache import KVPageTable, worst_case_page_bytes
 from repro_torch.pool import MemoryPoolManager, auto_depth, default_pool
 from repro_torch.pool.manager import PoolEntry
+from repro_torch.prefix import PrefixCacheManager
 from repro_torch.sched.prefetch import InFlightFetches, PlanPrefetcher
 from repro_torch.sched.queue import AdmissionController, ArrivalQueue
 from repro_torch.sched.requests import (
-    DECODE, DONE, PREFILL, Request, RequestState,
+    DECODE, DONE, PREEMPTED, PREFILL, SHED, Request, RequestState,
 )
 from repro_torch.serving.engine import (
     _flatten, jit_decode, jit_prefill, jit_prefill_chunk,
 )
 from repro_torch.serving.sampling import sample_token
-from repro_torch.slo.policy import SLOConfig
+from repro_torch.slo.admission import GoodputController
+from repro_torch.slo.policy import SLOConfig, candidate_key
+from repro_torch.slo.preempt import PreemptionEngine
+
+#: pool priority of a preempted request's parked pages: below every live
+#: sequence's pages (priority >= 1, their remaining work) but above the
+#: prefix cache's 0.0 — device pressure spills preempted rows first.
+_PREEMPTED_PAGE_PRIO = 0.25
 
 _SCHED_IDS = itertools.count()
 
@@ -104,8 +117,11 @@ class SchedulerConfig:
     # (PAGED_INSERTION)
     insert_opts: Optional[InsertionOptions] = None
     refine: bool = True
-    # SLO-aware scheduling: None (or enable=False) is FIFO + capacity
-    # admission, the only mode of this port so far
+    # SLO-aware scheduling: None (or enable=False) keeps pure FIFO +
+    # capacity admission; enabled, ready requests are admitted best-first
+    # (priority class, then earliest TTFT deadline), certainly-infeasible
+    # requests are shed, and deadline-pressed arrivals may preempt (park) a
+    # running lower-priority sequence.
     slo: Optional[SLOConfig] = None
 
 
@@ -131,20 +147,9 @@ class ContinuousScheduler:
                  cfg: SchedulerConfig = SchedulerConfig(), *,
                  pool: Optional[MemoryPoolManager] = None,
                  plan_cache: Optional[Dict[Any, Any]] = None,
-                 prefix_cache: Any = None,
+                 prefix_cache: Optional[PrefixCacheManager] = None,
                  tracer=None,
                  metrics: Optional[MetricsRegistry] = None) -> None:
-        if cfg.slo is not None and cfg.slo.enable:
-            raise ValueError(
-                "SLO-aware scheduling needs the goodput controller and the "
-                "preemption engine (slo/admission.py, slo/preempt.py), "
-                "which the port does not have yet; leave SchedulerConfig."
-                "slo unset for FIFO admission")
-        if prefix_cache is not None:
-            raise ValueError(
-                "the prefix cache (repro_torch.prefix: prefix/index.py, "
-                "prefix/cache.py) is not in the port yet; construct the "
-                "scheduler without prefix_cache")
         self.model = model
         self.params = params
         self.cfg = cfg
@@ -224,6 +229,17 @@ class ContinuousScheduler:
             self.pool, itemsize=cfg.cache_dtype.itemsize)
         self._row_bytes = worst_case_page_bytes(
             model.cache_specs(1, cfg.max_seq, cfg.cache_dtype))
+        # SLO-aware scheduling: policy objects + the parked (preempted)
+        # states, which are in neither the queue nor a slot but still hold
+        # their capacity reservation
+        self.slo: Optional[SLOConfig] = \
+            cfg.slo if (cfg.slo is not None and cfg.slo.enable) else None
+        self.preempted: List[RequestState] = []
+        self.goodput: Optional[GoodputController] = None
+        self.preemptor: Optional[PreemptionEngine] = None
+        if self.slo is not None:
+            self.goodput = GoodputController(self.slo, metrics=metrics)
+            self.preemptor = PreemptionEngine(self.slo)
         self.prefetcher: Optional[PlanPrefetcher] = None
         self._inflight: Optional[InFlightFetches] = None
         self._fetch_map: Dict[str, Tuple[int, int, int, int, int]] = {}
@@ -233,6 +249,24 @@ class ContinuousScheduler:
                 hw=cfg.hw, refine=cfg.refine, insert_opts=cfg.insert_opts,
                 plan_cache=plan_cache, tracer=self._tracer)
             self.pool.add_evict_listener(self._on_evict)
+        self.prefix_cache = prefix_cache
+        if prefix_cache is not None:
+            if cfg.chunk_size is None:
+                raise ValueError(
+                    "prefix_cache requires chunked prefill (chunk_size): a "
+                    "hit resumes prefill at the match offset, which only "
+                    "the chunked path supports")
+            if cfg.kv_offload and prefix_cache.pool is not self.pool:
+                raise ValueError(
+                    "prefix_cache must share the scheduler's pool in "
+                    "kv_offload mode (prefix-page fetches ride the same "
+                    "PlanPrefetcher plan)")
+            # prefix reuse slices/restores KV by absolute position, which
+            # is only exact while no cache leaf's ring buffer has wrapped:
+            # requests longer than the shortest leaf (a sliding-window
+            # layer's window) bypass the cache entirely
+            self._prefix_seq_limit = min(
+                int(leaf.shape[2]) for leaf in _flatten(self.cache)[0])
         self.now = 0.0
         self._closed = False
 
@@ -261,10 +295,13 @@ class ContinuousScheduler:
         self._closed = True
         if self.cfg.kv_offload:
             self.pool.remove_evict_listener(self._on_evict)
-        for st in list(self.slots) + list(self.finished.values()):
+        for st in (list(self.slots) + list(self.preempted)
+                   + list(self.finished.values())):
             if st is not None:
                 if st.pages is not None:
                     st.pages.drop()
+                if st.prefix_hit is not None and self.prefix_cache is not None:
+                    self.prefix_cache.release(st.prefix_hit)
                 self.admission.release(st)
         if self._owns_pool:
             self.pool.close()
@@ -275,6 +312,10 @@ class ContinuousScheduler:
     def prefetch_stats(self) -> Optional[Dict[str, float]]:
         return None if self.prefetcher is None else \
             self.prefetcher.stats.snapshot()
+
+    def prefix_stats(self) -> Optional[Dict[str, float]]:
+        return None if self.prefix_cache is None else \
+            self.prefix_cache.snapshot()
 
     # -- step phases ---------------------------------------------------
     def _on_evict(self, entry: PoolEntry, dst: str) -> None:
@@ -301,7 +342,14 @@ class ContinuousScheduler:
         fetched = self._inflight.wait_all()
         self._inflight = None
         for key, arr in fetched.items():
-            si, pi, j, ri, slot = self._fetch_map[key]
+            dest = self._fetch_map.get(key)
+            if dest is None:
+                # the owner was preempted after these fetches were issued:
+                # its slot may already hold another request, so the value
+                # is dropped (the page itself stays pool-resident from the
+                # last park — resume fetches it again)
+                continue
+            si, pi, j, ri, slot = dest
             _flatten(self._subtree(si, pi))[0][j][ri, slot] = arr
         self._fetch_map = {}
 
@@ -312,7 +360,7 @@ class ContinuousScheduler:
         covers = f"{self._ns}/req{state.req_id}-"
         if self.admission.try_admit(state, self._row_bytes, covers):
             return True
-        if (not self.active
+        if (not self.active and not self.preempted
                 and not self.admission.can_ever_admit(self._row_bytes)):
             raise RuntimeError(
                 f"request {state.req_id} can never be admitted: "
@@ -322,9 +370,12 @@ class ContinuousScheduler:
 
     def _try_admit_head(self) -> Optional[Tuple[RequestState, int]]:
         """Admission guard shared by both prefill paths: pop the arrival
-        queue's head into a free slot if the pool can hold its worst-case
-        pages. Returns (state, slot) or None (no slot / not arrived /
-        capacity pressure)."""
+        queue's best candidate into a free slot (SLO mode: possibly freed
+        by preemption) if the pool can hold its worst-case pages. Returns
+        (state, slot) or None (no slot / not arrived / capacity
+        pressure)."""
+        if self.slo is not None:
+            return self._try_admit_slo()
         free = [i for i, s in enumerate(self.slots) if s is None]
         if not free:
             return None
@@ -336,15 +387,191 @@ class ContinuousScheduler:
         self.queue.pop()
         return state, free[0]
 
+    def _try_admit_slo(self) -> Optional[Tuple[RequestState, int]]:
+        """SLO admission: the best ready candidate (priority class, then
+        earliest TTFT deadline — ``slo.candidate_key``) takes a free slot,
+        or — when none is free and its deadline can't survive waiting for
+        a natural retirement — a slot freed by preempting a running
+        lower-priority sequence. Capacity is reserved *before* the
+        preemption is performed, so a reservation failure never parks a
+        victim for nothing."""
+        ready = self.queue.ready(self.now)
+        if not ready:
+            return None
+        state = min(ready, key=candidate_key)
+        free = [i for i, s in enumerate(self.slots) if s is None]
+        if free:
+            if not self._reserve_capacity(state):
+                return None
+            self.queue.remove(state)
+            return state, free[0]
+        running = self.active
+        if self.cfg.kv_offload:
+            # a sequence that reached DECODE *this step* (prefill just
+            # finished) has its freshest row only in the batch cache — its
+            # pool pages aren't parked until this step's epilogue — so it
+            # is not preemptible yet
+            running = [s for s in running
+                       if not (s.status == DECODE
+                               and s.last_step == self.stats.steps)]
+        victim = self.preemptor.pick_victim(
+            state, running, self.now,
+            est_prefill_steps=self._est_prefill_steps(state),
+            remaining_steps=self._remaining_steps)
+        if victim is None:
+            return None
+        if not self._reserve_capacity(state):
+            return None
+        slot = victim.slot
+        self._preempt(victim)
+        self.queue.remove(state)
+        return state, slot
+
+    # -- SLO mechanics -------------------------------------------------
+    def _est_prefill_steps(self, state: RequestState) -> float:
+        """Optimistic steps from admission to first token for a queued
+        candidate: its remaining prompt plus the prompt backlog already
+        mid-prefill, at the measured per-step prefill rate. Whole-prompt
+        mode prefills in the admission step itself."""
+        if self.cfg.chunk_size is None:
+            return 1.0
+        base = self.cfg.prefill_tokens or self.cfg.chunk_size
+        rate = self.goodput.rate(base)
+        backlog = sum(max(s.request.prompt_len - s.prefill_pos, 0)
+                      for s in self.slots
+                      if s is not None and s.status == PREFILL)
+        remaining = max(state.request.prompt_len - state.prefill_pos, 0)
+        return max(1.0, np.ceil((backlog + remaining) / rate))
+
+    def _remaining_steps(self, s: RequestState) -> int:
+        """Steps until a running state retires and frees its slot (decode
+        budget plus, mid-prefill, its outstanding chunks)."""
+        n = s.request.max_new_tokens - len(s.out)
+        if s.status == PREFILL and self.cfg.chunk_size is not None:
+            base = self.cfg.prefill_tokens or self.cfg.chunk_size
+            rem = max(s.request.prompt_len - s.prefill_pos, 0)
+            n += -(-rem // base)
+        return n
+
+    def _slo_shed_sweep(self) -> None:
+        """Drop every ready request whose TTFT deadline is certainly
+        unmeetable — *before* admission, so no prefill is spent on
+        admitted-then-missed work."""
+        for state in self.queue.ready(self.now):
+            if self.goodput.infeasible(
+                    state, self.now, self._est_prefill_steps(state)):
+                self._shed(state)
+
+    def _shed(self, state: RequestState) -> None:
+        """Terminal drop from the queue: never admitted, so there is no
+        slot, reservation, or page to release."""
+        self.queue.remove(state)
+        state.status = SHED
+        state.t_done = self.now
+        self.finished[state.req_id] = state
+        self.stats.shed += 1
+        self.goodput.note_retired(state)
+        if self._tracer.enabled:
+            self._tracer.instant("request", "SHED",
+                                 {"req": state.req_id,
+                                  "arrival": state.request.arrival})
+
+    def _preempt(self, victim: RequestState) -> None:
+        """Park a running sequence and free its slot. A DECODE victim's
+        rows are either already pool-resident from the last ``_park_and_
+        issue`` (kv_offload — just demote their priority and orphan any
+        in-flight fetches targeting the reassigned slot) or copied out of
+        the batch cache onto ``chunk_cache`` (resident: a copy, since the
+        next request in the slot writes the batch cache in place). A
+        mid-PREFILL victim's partial row is already on ``chunk_cache``/in
+        the pool (``_park_chunk_row`` ran when the chunk budget moved on).
+        The capacity reservation is kept — the pages still occupy pool
+        space, so admission stays exactly as conservative as before."""
+        slot = victim.slot
+        if victim.status == DECODE and not self.cfg.kv_offload:
+            row = self._new_row()
+            for big, r in zip(_flatten(self.cache)[0], _flatten(row)[0]):
+                r[:, 0] = big[:, slot]
+            victim.chunk_cache = row
+        if self.cfg.kv_offload and victim.pages is not None:
+            for key in victim.pages.keys.values():
+                self._fetch_map.pop(key, None)
+                self.pool.set_priority(key, _PREEMPTED_PAGE_PRIO)
+        victim.status = PREEMPTED
+        victim.preemptions += 1
+        victim.slot = None
+        self.slots[slot] = None
+        self.preempted.append(victim)
+        self.stats.preemptions += 1
+        if self._tracer.enabled:
+            self._tracer.instant("request", "PREEMPTED",
+                                 {"req": victim.req_id, "slot": slot})
+
+    def _resume_preempted(self, *, final: bool) -> None:
+        """Restore preempted sequences into free slots, best first. In the
+        pre-pass (``final=False``) a preempted sequence only takes a slot
+        if it outranks every ready queued candidate — otherwise admission
+        gets first claim on the slot this step; the post-pass
+        (``final=True``) hands any slots admission left free back to
+        preempted work (its capacity is already reserved)."""
+        while self.preempted:
+            free = [i for i, s in enumerate(self.slots) if s is None]
+            if not free:
+                return
+            best = min(self.preempted, key=candidate_key)
+            if not final:
+                ready = self.queue.ready(self.now)
+                if ready and min(candidate_key(s) for s in ready) \
+                        < candidate_key(best):
+                    return
+            # by identity: dataclass equality would compare token arrays
+            self.preempted = [s for s in self.preempted if s is not best]
+            self._resume(best, free[0])
+
+    def _resume(self, state: RequestState, slot: int) -> None:
+        """Inverse of ``_preempt``: a DECODE sequence's row rides the same
+        restore path parked mid-prefill chunks use (chunk_cache or plan-
+        driven pool fetches) and is scattered back into the slot; a mid-
+        PREFILL sequence just re-enters the chunked loop, which restores
+        its row on its next advance."""
+        was_decode = state.t_first_token is not None
+        self.slots[slot] = state
+        state.slot = slot
+        state.status = DECODE if was_decode else PREFILL
+        self.stats.resumes += 1
+        if was_decode:
+            self._scatter_row(self._restore_chunk_row(state), slot)
+        if self._tracer.enabled:
+            self._tracer.instant("request", "RESUMED",
+                                 {"req": state.req_id, "slot": slot})
+
+    def slo_snapshot(self) -> Optional[Dict[str, int]]:
+        return None if self.goodput is None else self.goodput.snapshot()
+
     def _admit_and_prefill(self) -> List[Tuple[int, int]]:
+        if self.slo is not None:
+            # SLO pre-pass: reset the preemption quota, shed certainly-
+            # infeasible arrivals before any admission work, and restore
+            # preempted sequences that outrank everything still queued
+            pt0 = self.stats.prefill_tokens
+            self.preemptor.begin_step()
+            self._slo_shed_sweep()
+            self._resume_preempted(final=False)
         if self.cfg.chunk_size is not None:
-            return self._admit_and_prefill_chunked()
-        emitted = []
-        for _ in range(self.cfg.prefill_budget):
-            admitted = self._try_admit_head()
-            if admitted is None:
-                break
-            emitted.append(self._join(*admitted))
+            emitted = self._admit_and_prefill_chunked()
+        else:
+            emitted = []
+            for _ in range(self.cfg.prefill_budget):
+                admitted = self._try_admit_head()
+                if admitted is None:
+                    break
+                emitted.append(self._join(*admitted))
+        if self.slo is not None:
+            # slots admission left free (no ready candidates / capacity)
+            # go back to preempted sequences, and the step's landed
+            # prefill tokens feed the measured-rate estimate
+            self._resume_preempted(final=True)
+            self.goodput.note_step(self.stats.prefill_tokens - pt0)
         return emitted
 
     def _admit_and_prefill_chunked(self) -> List[Tuple[int, int]]:
@@ -360,11 +587,21 @@ class ContinuousScheduler:
         budget = self.cfg.prefill_tokens or self.cfg.chunk_size
         mid = [s for s in self.slots
                if s is not None and s.status == PREFILL]
+        if self.goodput is not None:
+            # deadline pressure on mid-prefill requests may raise the
+            # step's token budget (capped at max_prefill_boost)
+            budget = self.goodput.boost_budget(budget, mid, self.now)
         spent = 0
         for s in sorted(mid, key=lambda s: (s.joined_step, s.req_id)):
             out, spent = self._advance_chunks(s, spent, budget)
             emitted += out
-        while spent < budget:
+        # SLO mode: mid-prefill work exhausting the budget must not hide
+        # the admission (and preemption) check from a deadline-pressed
+        # arrival — it still gets one seat attempt; its own chunks then
+        # start next step
+        tries = 0
+        while spent < budget or (self.slo is not None and tries == 0):
+            tries += 1
             admitted = self._try_admit_head()
             if admitted is None:
                 break
@@ -397,10 +634,66 @@ class ContinuousScheduler:
 
     def _join_chunked(self, state: RequestState, slot: int) -> None:
         """Take the slot and the capacity reservation; prefill advances in
-        ``_prefill_chunk_step`` calls from here on."""
+        ``_prefill_chunk_step`` calls from here on. With a prefix cache, a
+        hit pre-loads the shared pages and moves ``prefill_pos`` past
+        them — only the uncached suffix is ever prefilled."""
         self._take_slot(state, slot)
         state.prefill_pos = 0
         state.chunk_cache = self._new_row()
+        if self.prefix_cache is not None:
+            self._apply_prefix_hit(state)
+
+    def _apply_prefix_hit(self, state: RequestState) -> None:
+        """Admission-side prefix hit: match the prompt, *copy* every shared
+        page into the request's own row cache (the copy is what makes the
+        sharing copy-on-write — the cached entries are never written
+        again), and resume prefill at the match offset. The match is capped
+        at ``prompt_len - 1`` so at least one real token remains to prefill
+        (the first sampled token needs its logits). Read refs on the
+        matched pages are held until retirement."""
+        req = state.request
+        if req.total_len > self._prefix_seq_limit:
+            return   # a ring-buffer leaf would wrap — positions unreliable
+        hit = self.prefix_cache.lookup(req.tokens,
+                                       max_tokens=req.prompt_len - 1)
+        if hit is None:
+            return
+        state.prefix_hit = hit
+        pages = hit.page_keys()
+        values = self._fetch_prefix_pages(pages)
+        ps = self.prefix_cache.page_size
+        row = state.chunk_cache
+        for i, (si, ri, pi) in enumerate(self._flat):
+            leaves = _flatten(row["segments"][si][f"p{pi}"])[0]
+            for j, leaf in enumerate(leaves):
+                for p, entries in enumerate(pages):
+                    leaf[ri, 0, p * ps:(p + 1) * ps] = \
+                        values[entries[f"L{i}.{j}"]]
+        state.prefill_pos = hit.tokens
+        self.stats.prefix_hits += 1
+        self.stats.prefix_hit_tokens += hit.tokens
+
+    def _fetch_prefix_pages(
+            self, pages: List[Dict[str, str]]) -> Dict[str, torch.Tensor]:
+        """The matched pages' tensors, on the scheduler's device. Host- or
+        remote-resident hits ride the ``PlanPrefetcher`` plan (kv_offload
+        mode): every page's fetch issues in the refined order before any is
+        waited on, and each wait makes the compute stream wait on its copy.
+        Pages the plan doesn't cover — and all pages in resident mode —
+        take a pool get, which copies on the compute stream."""
+        keys_by_layer: Dict[int, List[str]] = {}
+        all_keys: List[str] = []
+        for entries in pages:
+            for label, key in entries.items():
+                layer = int(label[1:label.index(".")])
+                keys_by_layer.setdefault(layer, []).append(key)
+                all_keys.append(key)
+        fetched: Dict[str, torch.Tensor] = {}
+        if self.prefetcher is not None:
+            fetched = self.prefetcher.issue(keys_by_layer).wait_all()
+        pool = self.prefix_cache.pool
+        return {k: fetched[k] if k in fetched else pool.get(k)
+                for k in all_keys}
 
     def _prefill_chunk_step(
             self, state: RequestState,
@@ -482,6 +775,11 @@ class ContinuousScheduler:
                 leaf[ri, 0] = val
         return row
 
+    def _scatter_row(self, row: Any, slot: int) -> None:
+        """Write a batch-1 row cache into the batch cache's ``slot``."""
+        for big, r in zip(_flatten(self.cache)[0], _flatten(row)[0]):
+            big[:, slot] = r[:, 0]
+
     def _take_slot(self, state: RequestState, slot: int) -> None:
         """Join bookkeeping shared by both prefill paths: occupy the batch
         slot and (kv_offload) create the request's page table."""
@@ -505,8 +803,7 @@ class ContinuousScheduler:
         from the last prompt token's logits, as ``ServeEngine.generate``
         does — one implementation for both prefill paths."""
         req = state.request
-        for big, r in zip(_flatten(self.cache)[0], _flatten(row)[0]):
-            big[:, state.slot] = r[:, 0]
+        self._scatter_row(row, state.slot)
         gen = state.generator(self.device) if req.temperature > 0.0 else None
         tok = int(sample_token(logits[:, 0], gen,
                                temperature=req.temperature,
@@ -584,6 +881,10 @@ class ContinuousScheduler:
                                   "tokens": len(state.out),
                                   "ttft_steps": state.t_first_token - arrival,
                                   "latency_steps": state.t_done - arrival})
+        if self.prefix_cache is not None:
+            self._donate_prefix(state)
+            if state.prefix_hit is not None:
+                self.prefix_cache.release(state.prefix_hit)
         if state.pages is not None:
             state.pages.drop()
         self.admission.release(state)
@@ -591,6 +892,37 @@ class ContinuousScheduler:
         state.slot = None
         self.finished[state.req_id] = state
         self.stats.retires += 1
+        if self.goodput is not None:
+            self.goodput.note_retired(state)
+
+    def _donate_prefix(self, state: RequestState) -> None:
+        """Retirement-side donation: the retired prompt's full prefix pages
+        enter the cache instead of being freed. The batch cache still holds
+        this slot's rows (retire runs right after the decode or final-chunk
+        scatter), so pages are sliced straight out of it — decode only ever
+        writes at positions >= prompt_len, so prompt-range slices are
+        exactly the prefill-time KV. ``extract`` is lazy (the manager calls
+        it only for pages not already cached) and returns views of the
+        batch cache, which the pool's put copies before anything writes
+        the slot again."""
+        req = state.request
+        if req.total_len > self._prefix_seq_limit:
+            return
+        n_pages = req.prompt_len // self.prefix_cache.page_size
+        if n_pages < 1:
+            return
+        slot, ps = state.slot, self.prefix_cache.page_size
+
+        def extract(p: int) -> Dict[str, torch.Tensor]:
+            a, b = p * ps, (p + 1) * ps
+            page: Dict[str, torch.Tensor] = {}
+            for i, (si, ri, pi) in enumerate(self._flat):
+                leaves = _flatten(self._subtree(si, pi))[0]
+                for j, leaf in enumerate(leaves):
+                    page[f"L{i}.{j}"] = leaf[ri, slot, a:b]
+            return page
+
+        self.prefix_cache.donate(req.tokens, n_pages, extract)
 
     def _park_and_issue(self) -> None:
         """kv_offload epilogue: park every running request's pages (stable
@@ -672,7 +1004,8 @@ class ContinuousScheduler:
                 n += -(-rem // self.cfg.chunk_size)   # ceil
             return n
         return 16 + 2 * sum(
-            _steps_for(s) for s in (list(self.queue.pending()) + self.active))
+            _steps_for(s) for s in (list(self.queue.pending()) + self.active
+                                    + list(self.preempted)))
 
     def run(self, requests: Sequence[Request] = (), *,
             max_steps: Optional[int] = None) -> Dict[int, np.ndarray]:
@@ -683,8 +1016,8 @@ class ContinuousScheduler:
         if max_steps is None:
             max_steps = self.default_max_steps()
         steps = 0
-        while len(self.queue) or self.active:
-            if (not self.active
+        while len(self.queue) or self.active or self.preempted:
+            if (not self.active and not self.preempted
                     and self.queue.head_ready(self.now) is None):
                 self.now = max(self.now, self.queue.next_arrival())  # idle skip
             self.step()

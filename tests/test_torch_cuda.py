@@ -471,3 +471,49 @@ def test_ssd_kernel_refuses_inputs_that_require_grad(cuda_device):
     with pytest.raises(ValueError, match="multiple of chunk"):
         ssd_scan_cuda(x.detach(), a, bm, cm, 48)
     assert ssd_scan_cuda.launches == before
+
+
+def _refuses_grad(call, tensors, launches_of):
+    """``call(*tensors)`` raises for every input that requires grad, and
+    launches nothing; with no input requiring grad it runs."""
+    before = launches_of.launches
+    for i in range(len(tensors)):
+        ins = [t.detach().requires_grad_(j == i)
+               for j, t in enumerate(tensors)]
+        with pytest.raises(ValueError, match="requires grad"):
+            call(*ins)
+    assert launches_of.launches == before
+    call(*[t.detach() for t in tensors])
+    assert launches_of.launches == before + 1
+
+
+@pytest.mark.cuda
+def test_flash_kernel_refuses_inputs_that_require_grad(cuda_device):
+    q = torch.randn(1, 4, 16, 32, device=cuda_device)
+    k = torch.randn(1, 2, 16, 32, device=cuda_device)
+    _refuses_grad(lambda q, k, v: flash_attention_cuda(q, k, v, scale=0.1),
+                  (q, k, k.clone()), flash_attention_cuda)
+
+
+@pytest.mark.cuda
+def test_paged_kernel_refuses_inputs_that_require_grad(cuda_device):
+    page, d = 8, 32
+    q = torch.randn(2, 4, d, device=cuda_device)
+    pages = torch.randn(3, 2, page, 2, d, device=cuda_device)
+    tail = torch.randn(2, page, 2, d, device=cuda_device)
+    table = torch.tensor([2, 0], dtype=torch.int32, device=cuda_device)
+    _refuses_grad(
+        lambda q, kp, vp, kt, vt: paged_decode_attention_cuda(
+            q, kp, vp, table, kt, vt, 5, scale=0.1),
+        (q, pages, pages.clone(), tail, tail.clone()),
+        paged_decode_attention_cuda)
+
+
+@pytest.mark.cuda
+def test_decode_kernel_refuses_inputs_that_require_grad(cuda_device):
+    q = torch.randn(2, 4, 32, device=cuda_device)
+    k = torch.randn(2, 64, 2, 32, device=cuda_device)
+    pos = torch.tensor([3, 40], dtype=torch.int32, device=cuda_device)
+    _refuses_grad(
+        lambda q, k, v: decode_attention_cuda(q, k, v, pos, scale=0.1),
+        (q, k, k.clone()), decode_attention_cuda)

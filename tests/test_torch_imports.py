@@ -23,7 +23,9 @@ for name in ("repro_torch.models.ssm", "repro_torch.kernels.ssd_scan",
              *(f"repro_torch.core.{m}" for m in (
                  "ir", "costmodel", "lifetime", "memsim", "timeline",
                  "schedule", "allocator", "insertion", "planner", "tracer")),
-             "repro_torch.slo.policy", "repro_torch.obs.metrics",
+             "repro_torch.slo.policy", "repro_torch.slo.admission",
+             "repro_torch.slo.preempt", "repro_torch.prefix.index",
+             "repro_torch.prefix.cache", "repro_torch.obs.metrics",
              *(f"repro_torch.sched.{m}" for m in (
                  "requests", "queue", "prefetch", "scheduler"))):
     assert name in names, name

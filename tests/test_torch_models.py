@@ -269,7 +269,7 @@ def test_routed_decode_matches_jax_across_the_ring_wrap(routed_decode, name,
 
 
 @pytest.mark.parametrize("name", list(ROUTED))
-def test_per_row_pos_keeps_the_plain_decode(routed_decode, name):
+def test_tensor_pos_routes_through_the_ring_kernel(routed_decode, name):
     """A (B,) pos (rows at their own indices) and a 0-dim tensor pos under
     "kernel" go through ``ops.decode_attention`` too, handed over as
     tensors, and match JAX's ``attention_decode``: the plain decode is

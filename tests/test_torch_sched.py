@@ -5,12 +5,16 @@ Both packages get the same parameters (the JAX model's, carried across
 with ``params_from_numpy``) and the same requests (from numpy with a
 seed). The two schedulers are stepped in lockstep over the reference's
 mixed trace (staggered arrivals, mixed lengths, 5 requests over 2 slots),
-resident and ``kv_offload``, whole-prompt and chunked, and every step must
-emit the same greedy tokens and leave the same counters: ``SchedStats``,
-the pool's deterministic counts (reservations included), the prefetcher's
-fetches and the latency histograms. Greedy decoding only: sampled tokens
-come from ``torch.Generator`` in the port and ``jax.random`` in the
-reference.
+resident and ``kv_offload``, whole-prompt and chunked; over an
+interactive-class overload trace with SLO admission on (sheds,
+preemptions mid-decode and mid-prefill, resumes); and over a shared-prefix
+trace with a prefix cache (hits, donations, and in the spill mode chains
+invalidated by the ``pin_tier`` floor). Every step must emit the same
+greedy tokens and leave the same counters: ``SchedStats``, the pool's
+deterministic counts (reservations included), the SLO and prefix-cache
+snapshots, every request's status, the prefetcher's fetches and the
+latency histograms. Greedy decoding only: sampled tokens come from
+``torch.Generator`` in the port and ``jax.random`` in the reference.
 """
 
 import dataclasses
@@ -29,7 +33,9 @@ from repro.offload.kvcache import worst_case_page_bytes as jax_row_bytes
 from repro.pool import TransferEngine as JaxTransferEngine
 from repro.pool import default_pool as jax_default_pool
 from repro import sched as jsched
+from repro.prefix import PrefixCacheManager as JaxPrefixCache
 from repro.slo.policy import SLOConfig as JaxSLOConfig
+from repro.slo.policy import SLOSpec as JaxSLOSpec
 from repro_torch import sched as tsched
 from repro_torch.configs import REGISTRY as TORCH_REGISTRY
 from repro_torch.convert import params_from_numpy
@@ -39,8 +45,10 @@ from repro_torch.obs.metrics import STEP_BUCKETS
 from repro_torch.obs.metrics import MetricsRegistry as TorchMetrics
 from repro_torch.offload.kvcache import worst_case_page_bytes as torch_row_bytes
 from repro_torch.pool import default_pool as torch_default_pool
+from repro_torch.prefix import PrefixCacheManager as TorchPrefixCache
 from repro_torch.serving.engine import ServeEngine
 from repro_torch.slo.policy import SLOConfig as TorchSLOConfig
+from repro_torch.slo.policy import SLOSpec as TorchSLOSpec
 
 CPU = torch.device("cpu")
 MAX_SEQ = 32
@@ -215,21 +223,56 @@ MODES = {
     f"chunk{MAX_SEQ}": dict(chunk_size=MAX_SEQ),
     "chunk4-budget8": dict(chunk_size=4, prefill_tokens=8),
     "chunk4-kv_offload": dict(chunk_size=4, kv_offload=True),
+    # SLO admission over the interactive overload trace
+    "slo-whole": dict(slo=True),
+    "slo-chunk4": dict(chunk_size=4, slo=True),
+    "slo-chunk4-kv_offload": dict(chunk_size=4, kv_offload=True, slo=True),
+    # the prefix cache over the shared-prefix trace; in the spill mode a
+    # host tier of 2 rows pushes cached pages below the pin_tier floor
+    "prefix-chunk4": dict(chunk_size=4),
+    "prefix-chunk4-kv_offload": dict(chunk_size=4, kv_offload=True),
+    "prefix-chunk4-spill": dict(chunk_size=4, kv_offload=True),
 }
+
+#: the interactive-class overload trace of the slo-* modes: 10 requests on
+#: 2 slots, 40% interactive with a 6-step TTFT deadline (it sheds, and
+#: preempts a batch sequence mid-prefill and mid-decode)
+SLO_TRACE = dict(rate=2.0, prompt_lens=(4, 16), new_tokens=(3, 12),
+                 prompt_quantum=4, interactive_fraction=0.4, seed=15)
+#: the shared-prefix trace of the prefix-* modes: two 12-token families
+PREFIX_TRACE = dict(rate=0.5, prompt_lens=(4, 8), new_tokens=(2, 6),
+                    prompt_quantum=4, n_prefix_families=2, prefix_len=12,
+                    seed=0)
+
+
+def _trace(pkg, spec, mode, vocab):
+    if mode.startswith("slo"):
+        return pkg.poisson_trace(
+            10, vocab_size=vocab,
+            interactive_slo=spec("interactive", ttft_deadline=6.0),
+            **SLO_TRACE)
+    if mode.startswith("prefix"):
+        return pkg.poisson_trace(8, vocab_size=vocab, **PREFIX_TRACE)
+    return _mixed_trace(pkg, vocab)
 
 
 def _pools(mode, jm, tm):
-    if "kv_offload" not in mode:
+    if "kv_offload" not in MODES[mode] and not mode.startswith("prefix"):
         return None, None
     if mode.endswith("spill"):
         row = jax_row_bytes(jm.cache_specs(1, MAX_SEQ, np.float32))
         assert torch_row_bytes(tm.cache_specs(1, MAX_SEQ,
                                               torch.float32)) == row
-        caps = dict(device_capacity=int(1.5 * row), host_capacity=4 * row)
+        host = 2 * row if mode.startswith("prefix") else 4 * row
+        caps = dict(device_capacity=int(1.5 * row), host_capacity=host)
         return (jax_default_pool(transfer=JaxTransferEngine(depth=64),
                                  **caps),
                 torch_default_pool(transfer_depth=64, device="cpu", **caps))
     return jax_default_pool(), torch_default_pool(device="cpu")
+
+
+def _statuses(states):
+    return [(s.status, s.slot, s.prefill_pos, s.preemptions) for s in states]
 
 
 @pytest.mark.parametrize("mode", sorted(MODES))
@@ -237,40 +280,69 @@ def test_scheduler_matches_the_reference_step_by_step(pair, mode):
     jm, jp, tm, tp = pair
     jpool, tpool = _pools(mode, jm, tm)
     kw = dict(max_batch=2, max_seq=MAX_SEQ, **MODES[mode])
+    slo = kw.pop("slo", False)
+    jkw, tkw = dict(kw), dict(kw)
+    if slo:
+        jkw["slo"], tkw["slo"] = (JaxSLOConfig(enable=True),
+                                  TorchSLOConfig(enable=True))
+    jcache = tcache = None
+    if mode.startswith("prefix"):
+        jcache = JaxPrefixCache(jpool, page_size=4)
+        tcache = TorchPrefixCache(tpool, page_size=4)
     jmet, tmet = JaxMetrics(), TorchMetrics()
     js = jsched.ContinuousScheduler(
-        jm, jp, jsched.SchedulerConfig(hw=JAX_TPU_V5E, **kw), pool=jpool,
-        metrics=jmet)
+        jm, jp, jsched.SchedulerConfig(hw=JAX_TPU_V5E, **jkw), pool=jpool,
+        prefix_cache=jcache, metrics=jmet)
     ts = tsched.ContinuousScheduler(
-        tm, tp, tsched.SchedulerConfig(hw=TORCH_TPU_V5E, **kw), pool=tpool,
-        metrics=tmet)
-    jreqs = _mixed_trace(jsched, tm.cfg.vocab_size)
-    treqs = _mixed_trace(tsched, tm.cfg.vocab_size)
+        tm, tp, tsched.SchedulerConfig(hw=TORCH_TPU_V5E, **tkw), pool=tpool,
+        prefix_cache=tcache, metrics=tmet)
+    jreqs = _trace(jsched, JaxSLOSpec, mode, tm.cfg.vocab_size)
+    treqs = _trace(tsched, TorchSLOSpec, mode, tm.cfg.vocab_size)
     ids = {t.req_id: j.req_id for j, t in zip(jreqs, treqs)}
-    for j, t in zip(jreqs, treqs):
-        js.submit(j)
-        ts.submit(t)
+    jstates = [js.submit(j) for j in jreqs]
+    tstates = [ts.submit(t) for t in treqs]
     assert ts.default_max_steps() == js.default_max_steps()
-    while len(js.queue) or js.active:
+    while len(js.queue) or js.active or js.preempted:
         assert len(ts.queue) == len(js.queue)
         assert [s.req_id for s in js.slots if s] == \
             [ids[s.req_id] for s in ts.slots if s]
-        if not js.active and js.queue.head_ready(js.now) is None:
+        assert [s.req_id for s in js.preempted] == \
+            [ids[s.req_id] for s in ts.preempted]
+        if (not js.active and not js.preempted
+                and js.queue.head_ready(js.now) is None):
             js.now = max(js.now, js.queue.next_arrival())
             ts.now = max(ts.now, ts.queue.next_arrival())
         je, te = js.step(), ts.step()
         assert [(ids[r], t) for r, t in te] == je
         assert dataclasses.asdict(ts.stats) == dataclasses.asdict(js.stats)
         assert _det_counts(ts.pool_stats()) == _det_counts(js.pool_stats())
-    assert not ts.active and not len(ts.queue)
+        assert ts.slo_snapshot() == js.slo_snapshot()
+        assert ts.prefix_stats() == js.prefix_stats()
+        assert _statuses(tstates) == _statuses(jstates)
+        assert ts.default_max_steps() == js.default_max_steps()
+    assert not ts.active and not len(ts.queue) and not ts.preempted
     jout = {r.seed: js.finished[r.req_id].tokens_array() for r in jreqs}
     tout = {r.seed: ts.finished[r.req_id].tokens_array() for r in treqs}
     assert tout.keys() == jout.keys()
     for seed in jout:
         np.testing.assert_array_equal(tout[seed], jout[seed])
-    assert ts.stats.decoded_tokens == sum(r.max_new_tokens - 1 for r in treqs)
-    assert ts.stats.prefill_tokens == sum(r.prompt_len for r in treqs)
+    served = [r for r, st in zip(treqs, tstates) if st.status != tsched.SHED]
+    assert ts.stats.decoded_tokens == sum(r.max_new_tokens - 1 for r in served)
+    assert ts.stats.prefill_tokens == \
+        sum(r.prompt_len for r in served) - ts.stats.prefix_hit_tokens
     assert ts.prefetch_stats() == js.prefetch_stats()
+    if mode.startswith("slo"):
+        assert ts.stats.shed > 0 and ts.stats.preemptions > 0
+        assert ts.stats.resumes == ts.stats.preemptions
+        assert ts.slo_snapshot()["met_requests"] > 0
+    if mode.startswith("slo-chunk4"):
+        # one victim was mid-prefill, one mid-decode
+        assert ts.stats.preemptions == 2
+    if mode.startswith("prefix"):
+        assert ts.stats.prefix_hits > 0
+        assert ts.prefix_stats()["refs"] == 0
+    if mode == "prefix-chunk4-spill":
+        assert ts.prefix_stats()["invalidations"] > 0
     if "kv_offload" in mode:
         assert ts.prefetch_stats()["fetches_issued"] > 0
         assert ts.stats.pages_parked > 0
@@ -281,10 +353,13 @@ def test_scheduler_matches_the_reference_step_by_step(pair, mode):
     for name, buckets in HISTOGRAMS.items():
         assert tmet.histogram(name, buckets).snapshot() == \
             jmet.histogram(name, buckets).snapshot()
-    assert tmet.histogram("req_ttft_steps", STEP_BUCKETS).count == len(treqs)
+    assert tmet.histogram("req_ttft_steps", STEP_BUCKETS).count == len(served)
     assert tmet.render_prometheus() == jmet.render_prometheus()
     ts.close()
     js.close()
+    if tcache is not None:
+        tcache.close()
+        jcache.close()
     if tpool is not None:
         assert tpool.snapshot()["reserved"] == 0
         assert tpool.snapshot()["tier/device"]["entries"] == 0
@@ -366,7 +441,7 @@ def test_replan_swaps_the_plan_and_keeps_the_counters(pair):
 # ---------------------------------------------------------------------------
 
 
-def _errors(pkg, model, params):
+def _errors(pkg, model, params, make_pool, prefix_cache):
     """(type, message) of each refused construction or submission."""
     out = {}
     cases = {
@@ -388,6 +463,22 @@ def _errors(pkg, model, params):
                                  max_new_tokens=3))
     out["oversized"] = re.sub(r"request \d+", "request N", str(e.value))
     sched.close()
+    # a prefix cache needs chunked prefill, and in kv_offload mode the
+    # scheduler's own pool
+    pool, foreign = make_pool(), make_pool()
+    cache = prefix_cache(pool, page_size=4)
+    for name, kw in (("prefix-without-chunk", {}),
+                     ("prefix-foreign-pool", dict(chunk_size=4,
+                                                  kv_offload=True))):
+        with pytest.raises(ValueError) as e:
+            pkg.ContinuousScheduler(
+                model, params,
+                pkg.SchedulerConfig(max_batch=2, max_seq=MAX_SEQ, **kw),
+                pool=foreign, prefix_cache=cache)
+        out[name] = str(e.value)
+    cache.close()
+    pool.close()
+    foreign.close()
     return out
 
 
@@ -396,7 +487,9 @@ def test_scheduler_errors_match_the_reference():
               torch_build_model(TORCH_REGISTRY["phi3-mini-3.8b"].reduced()))
     jp = jm.init(jax.random.key(0))
     tp = params_from_numpy(jax.tree.map(np.asarray, jp), CPU)
-    je, te = _errors(jsched, jm, jp), _errors(tsched, tm, tp)
+    je = _errors(jsched, jm, jp, jax_default_pool, JaxPrefixCache)
+    te = _errors(tsched, tm, tp, lambda: torch_default_pool(device="cpu"),
+                 TorchPrefixCache)
     assert te.keys() == je.keys()
     for name in je:
         if name == "kv_offload-without-pool":   # each names its own pool
@@ -433,18 +526,29 @@ def test_scheduler_errors_match_the_reference():
         pool.close()
 
 
-def test_slo_and_prefix_cache_are_refused_until_ported():
+def test_slo_config_and_prefix_cache_are_accepted():
+    """An enabled ``SLOConfig`` and a ``PrefixCacheManager`` build the
+    policy objects; a disabled SLO config is FIFO, as in the reference."""
     tm = torch_build_model(TORCH_REGISTRY["phi3-mini-3.8b"].reduced())
     tp = tm.init(torch.Generator().manual_seed(0), device="cpu")
-    with pytest.raises(ValueError, match=r"slo/admission\.py"):
-        tsched.ContinuousScheduler(tm, tp, tsched.SchedulerConfig(
-            max_batch=2, max_seq=MAX_SEQ, slo=TorchSLOConfig(enable=True)))
-    with pytest.raises(ValueError, match=r"repro_torch\.prefix"):
-        tsched.ContinuousScheduler(tm, tp, tsched.SchedulerConfig(
-            max_batch=2, max_seq=MAX_SEQ, chunk_size=4), prefix_cache=object())
-    # a disabled SLO config is FIFO, as in the reference
+    pool = torch_default_pool(device="cpu")
+    cache = TorchPrefixCache(pool, page_size=4)
+    sched = tsched.ContinuousScheduler(
+        tm, tp, tsched.SchedulerConfig(max_batch=2, max_seq=MAX_SEQ,
+                                       chunk_size=4,
+                                       slo=TorchSLOConfig(enable=True)),
+        pool=pool, prefix_cache=cache)
+    assert sched.goodput is not None and sched.preemptor is not None
+    assert sched.prefix_stats()["pages"] == 0
+    assert sched.slo_snapshot() == {"goodput_tokens": 0, "met_requests": 0,
+                                    "missed_requests": 0, "boosted_steps": 0}
+    sched.close()
     sched = tsched.ContinuousScheduler(tm, tp, tsched.SchedulerConfig(
         max_batch=2, max_seq=MAX_SEQ, slo=TorchSLOConfig(enable=False)))
+    assert sched.slo is None and sched.slo_snapshot() is None
+    assert sched.prefix_stats() is None
     assert dataclasses.asdict(TorchSLOConfig()) == \
         dataclasses.asdict(JaxSLOConfig())
     sched.close()
+    cache.close()
+    pool.close()
