@@ -61,21 +61,38 @@ non-zero exit):
    is the hit tokens (12 hits, 3072 tokens unless a cached page was
    evicted), and one hit request's first-token logits pass the chunked
    logit rule on and off.
-5. paged   — ``PagedKVCache.attend_fused`` (the paged-decode kernel over
+5. session — phase 3's phi3 weights through ``HyperOffloadSession``
+   (``repro_torch.api``) on the sched phase's spill topology, telemetry
+   on: ``session.scheduler`` over the sched trace with codec ``none``
+   (tokens and ``SchedStats`` equal to the hand-built ``kv_offload-spill``
+   run), then int8 pages below the host tier (``numel + 4`` wire bytes a
+   page each way, a spilled page within ``roundtrip_bound``, the first
+   decode step after a host fetch held against ``none`` by a tolerance
+   derived from ``roundtrip_bound``, the share of equal tokens reported);
+   ``session.overlap()`` per tier pair and ``export_trace`` through
+   ``obs.check``; ``recalibrate()`` (measured rates, ``required_inflight``;
+   the trace again gives the same tokens); ``session.paged_kv`` over int8
+   pages (``attend_fused`` through the paged kernel against ``attend``);
+   ``session.executor`` on the card (residency trace equal to
+   ``core.memsim``'s); the codec's cost per page; and the launcher
+   ``repro_torch.launch.serve.main`` at full width (``kv_offload``,
+   ``--recalibrate``: one flash launch per layer per prefill, one ring
+   launch per layer per decode step).
+6. paged   — ``PagedKVCache.attend_fused`` (the paged-decode kernel over
    pool pages) against ``attend`` (the gather path) at phi3's attention
    widths, with every page selected and then top-4 of an 8-page budget.
-6. hybrid  — zamba2-7b (68 Mamba2 and 13 attention layers) at full width
+7. hybrid  — zamba2-7b (68 Mamba2 and 13 attention layers) at full width
    and depth, as in phase 3: every prefill launches the SSD kernel once per
    Mamba2 layer (each launch the tensor-core instance) and flash once per
    attention layer, every decode step the
    ring kernel once per attention layer; the ``offload_kv`` round trip
    carries the conv, SSM-state (fp32) and K/V leaves. The prefill logits
    are checked on three prompts, the bf16 rule by RMS error.
-7. ring    — ``ops.decode_attention`` (the ring-decode kernel) over the
+8. ring    — ``ops.decode_attention`` (the ring-decode kernel) over the
    caches that zamba2's ``attention_decode`` on the plain path has just
    written, held against that function's output, layer by layer for a few
    steps.
-8. ssm     — mamba2-370m (48 Mamba2 layers) at full width and depth:
+9. ssm     — mamba2-370m (48 Mamba2 layers) at full width and depth:
    ``Model.forward`` at B=4, S=2048 in bf16, one SSD launch per layer (each
    the tensor-core instance), logits held against the plain path as in
    phase 3.
@@ -83,7 +100,7 @@ non-zero exit):
 Output: the card's name and power limit, one line per phase, the total
 wall time, a JSON line ``{"kernels": [...]}`` and, last, ``{"ok": true,
 "device": {...}}``. The
-launch counts in the kernels line are the sums over phases 3 to 8 of each
+launch counts in the kernels line are the sums over phases 3 to 9 of each
 phase's own count: every count is set to 0 just before a phase drives the
 port and read just after. Without a CUDA device, or without the port
 beside this file, it prints no result and exits with 2.
@@ -196,8 +213,10 @@ def main() -> int:
     phase_build()
     phase_kernels(torch, dev, kernels)
     model, params = phase_serve(torch, dev, kernels)
-    phase_sched(torch, dev, kernels, model, params)
-    del model, params
+    runs = phase_sched(torch, dev, kernels, model, params)
+    phase_session(torch, dev, kernels, model, params,
+                  runs["kv_offload-spill"])
+    del model, params, runs
     torch.cuda.empty_cache()
     phase_paged(torch, dev, kernels)
     phase_hybrid(torch, dev, kernels)
@@ -1038,6 +1057,7 @@ def phase_sched(torch, dev, kernels, model, params) -> None:
     check_mixed_decode_logits(torch, model, params, n_attn)
     sched_slo_overload(torch, dev, kernels, model, params, n_attn)
     sched_prefix(torch, dev, kernels, model, params, n_attn)
+    return runs
 
 
 def _same_work(stats):
@@ -1189,35 +1209,50 @@ def sched_prefix(torch, dev, kernels, model, params, n_attn) -> None:
 
 
 def sched_run(torch, dev, kernels, model, params, trace, mode, kw, n_attn,
-              *, pool=None, prefix=False, warm=(), capture=None):
+              *, pool=None, prefix=False, warm=(), capture=None,
+              session=None, probe=None):
     """One ``ContinuousScheduler.run`` of ``trace`` in one mode; returns
     its tokens (by request seed), ``SchedStats``, the finished states, the
     requests not shed and the scheduler's SLO and prefix-cache snapshots.
     ``pool`` is None (the scheduler's own) or the capacities of a pool on
     the card; ``prefix`` adds a ``PrefixCacheManager`` on that pool, and
     ``warm`` requests run first (not counted). ``capture`` is a request
-    seed whose first-token logits are kept. Every entry point the scheduler
-    calls is wrapped to count its kernel launches per call (no launch, no
-    sync of its own); the step loop is timed on the host clock, and a
-    prefix hit's page fetch between two syncs."""
+    seed whose first-token logits are kept. ``session`` builds the
+    scheduler through ``HyperOffloadSession.scheduler`` (the session's
+    pool, plan cache and tracer; ``kw`` are its overrides). ``probe`` (a
+    dict) keeps the logits of the first decode step that reads a page
+    fetched back from below the device tier, the live rows of that step
+    and, with ``probe["keep_args"]``, its inputs (the batch cache
+    cloned). Every entry point the scheduler calls is wrapped to count its
+    kernel launches per call (no launch, no sync of its own); the step
+    loop is timed on the host clock, and a prefix hit's page fetch between
+    two syncs."""
     from repro_torch.kernels import ops
     from repro_torch.kernels.flash_attention import flash_attention_cuda
     from repro_torch.kernels.paged_attention import decode_attention_cuda
     from repro_torch.obs import Tracer
     from repro_torch.pool import default_pool
     from repro_torch.prefix import PrefixCacheManager
-    from repro_torch.sched import SHED, ContinuousScheduler, SchedulerConfig
+    from repro_torch.sched import (
+        DECODE, SHED, ContinuousScheduler, SchedulerConfig,
+    )
 
-    if pool is not None:
-        pool = default_pool(device=dev, **pool)
-    cache = (PrefixCacheManager(pool, page_size=PREFIX_PAGE) if prefix
-             else None)
-    # the scheduler's own spans (step phases, row park/restore, prefetch
-    # issue) give where a step's host time goes
-    tracer = Tracer()
-    sched = ContinuousScheduler(model, params, SchedulerConfig(
-        max_batch=BATCH, max_seq=MAX_SEQ, cache_dtype=torch.bfloat16, **kw),
-        pool=pool, prefix_cache=cache, tracer=tracer)
+    if session is not None:
+        # the session's pool, prefix cache and tracer (telemetry on)
+        sched = session.scheduler(model, params, **kw)
+        pool, cache, tracer = session.pool, session.prefix_cache, \
+            session.tracer
+    else:
+        if pool is not None:
+            pool = default_pool(device=dev, **pool)
+        cache = (PrefixCacheManager(pool, page_size=PREFIX_PAGE) if prefix
+                 else None)
+        # the scheduler's own spans (step phases, row park/restore,
+        # prefetch issue) give where a step's host time goes
+        tracer = Tracer()
+        sched = ContinuousScheduler(model, params, SchedulerConfig(
+            max_batch=BATCH, max_seq=MAX_SEQ, cache_dtype=torch.bfloat16,
+            **kw), pool=pool, prefix_cache=cache, tracer=tracer)
     calls = {"decode": 0, "prefill": 0, "chunk": 0}
 
     def counted(name, fn, flash, ring):
@@ -1236,6 +1271,28 @@ def sched_run(torch, dev, kernels, model, params, trace, mode, kw, n_attn,
         return call
 
     sched._decode = counted("decode", sched._decode, 0, n_attn)
+    if probe is not None:
+        park, decode = sched._park_and_issue, sched._decode
+
+        def probed_park():
+            park()
+            if "call" not in probe and any(
+                    pool.tier_of(k) != pool.top_tier for k in sched._fetch_map):
+                probe["call"] = calls["decode"]   # the next decode reads it
+
+        def probed_decode(*args):
+            if probe.get("call") != calls["decode"] or "logits" in probe:
+                return decode(*args)
+            probe["rows"] = [s.slot for s in sched.slots
+                             if s is not None and s.status == DECODE]
+            if probe.get("keep_args"):
+                probe["args"] = (_tree_map(lambda t: t.clone(), args[1]),
+                                 args[2].clone(), args[3].clone())
+            out = decode(*args)
+            probe["logits"] = out[0][:, 0].float().clone()
+            return out
+
+        sched._park_and_issue, sched._decode = probed_park, probed_decode
     sched._prefill = counted("prefill", sched._prefill, n_attn, 0)
     if kw.get("chunk_size"):
         sched._chunk_prefill = counted("chunk", sched._chunk_prefill, 0, 0)
@@ -1283,6 +1340,9 @@ def sched_run(torch, dev, kernels, model, params, trace, mode, kw, n_attn,
     steps.clear()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    # a session's pool and tracer carry earlier runs: this run's counters
+    # and spans are taken from here on
+    snap0, t_run0 = sched.pool_stats(), tracer.now()
     # the main path: counts set to 0 just before, read just after
     ops.reset_launch_counts()
     out, wall = synced_s(torch, lambda: sched.run(trace))
@@ -1317,7 +1377,15 @@ def sched_run(torch, dev, kernels, model, params, trace, mode, kw, n_attn,
     snap = sched.pool_stats()
     pf = sched.prefetch_stats() or {}
     emitted = sum(len(v) for v in tokens.values())
-    moved = snap["bytes_stored"] + snap["bytes_fetched"]
+    moved = sum(snap[k] - snap0[k]
+                for k in ("bytes_stored", "bytes_fetched"))
+
+    def pair_bytes(sn, pair):
+        return sn["transfer"]["pairs"].get(pair, {}).get("bytes", 0)
+
+    # what crossed the host link (encoded bytes under a codec)
+    wire = sum(pair_bytes(snap, p) - pair_bytes(snap0, p)
+               for p in ("device->host", "host->device"))
     log("sched", mode=mode, steps=st["steps"], tokens=emitted,
         wall_s=f"{wall:.3f}", tok_per_s=f"{emitted / wall:.1f}",
         decode_steps=len(decode_s),
@@ -1334,15 +1402,20 @@ def sched_run(torch, dev, kernels, model, params, trace, mode, kw, n_attn,
         fetches_issued=pf.get("fetches_issued", 0),
         mean_plan_lead=pf.get("mean_plan_lead", "n/a"),
         plan_hw=sched.cfg.hw.name,
-        waits_overlapped=snap["transfer"]["waits_overlapped"],
-        waits_blocked=snap["transfer"]["waits_blocked"],
-        blocked_ms=f"{snap['transfer']['blocked_s'] * 1e3:.2f}",
+        waits_overlapped=(snap["transfer"]["waits_overlapped"]
+                          - snap0["transfer"]["waits_overlapped"]),
+        waits_blocked=(snap["transfer"]["waits_blocked"]
+                       - snap0["transfer"]["waits_blocked"]),
+        blocked_ms=f"{(snap['transfer']['blocked_s'] - snap0['transfer']['blocked_s']) * 1e3:.2f}",
         pool_bytes_per_step=moved // st["steps"],
-        evictions=snap["evictions"],
+        host_link_bytes_per_step=wire // st["steps"],
+        evictions=snap["evictions"] - snap0["evictions"],
         host_entries_peak_bytes=snap["tier/host"]["peak"],
         max_allocated_gb=f"{peak / 1e9:.2f}")
     spans = {}
     for e in tracer.events():
+        if e.ts < t_run0:
+            continue
         if e.cat == "sched" and e.ph == "X":
             spans[e.name] = spans.get(e.name, 0.0) + e.dur
     log("sched", mode=mode, host_ms_per_step=json.dumps(
@@ -1367,12 +1440,14 @@ def sched_run(torch, dev, kernels, model, params, trace, mode, kw, n_attn,
             hit_fetch_ms_total=f"{sum(fetch_s) * 1e3:.2f}",
             hit_fetch_ms_mean=(f"{sum(fetch_s) / len(fetch_s) * 1e3:.3f}"
                                if fetch_s else "n/a"))
+    result["pool"] = snap
     sched.close()
-    if cache is not None:
+    if cache is not None and session is None:
         cache.close()
     if pool is not None:
         assert pool.snapshot()["reserved"] == 0
-        pool.close()
+        if session is None:
+            pool.close()
     del sched
     torch.cuda.empty_cache()
     return result
@@ -1556,7 +1631,496 @@ def check_mixed_decode_logits(torch, model, params, n_attn) -> None:
 
 
 # ---------------------------------------------------------------------------
-# 5. paged: fused decode over pool pages
+# 5. session: the HyperOffloadSession front door
+# ---------------------------------------------------------------------------
+
+#: trace events a session keeps: one scheduler run's spans all fit
+SESSION_RING = 1 << 18
+#: the launcher's command line (phi3-mini at full width, in process)
+LAUNCH_ARGV = ["--arch", ARCH, "--mode", "kv_offload", "--batch", str(BATCH),
+               "--prompt-len", str(PROMPT), "--new-tokens", str(NEW_TOKENS),
+               "--recalibrate", "--dtype", "bfloat16"]
+
+
+def phase_session(torch, dev, kernels, model, params, spill) -> None:
+    """phi3-mini through ``HyperOffloadSession`` (bf16, phase 3's weights),
+    on the spill topology of the sched phase (a device tier of 1.5
+    worst-case rows, then pinned host), telemetry on. ``spill`` is the
+    sched phase's ``kv_offload-spill`` run, which built the same objects by
+    hand. Holds, in order:
+
+    1. ``session.scheduler`` over ``SCHED_TRACE`` with codec ``none``: the
+       same tokens and ``SchedStats`` as ``spill``.
+    2. The same with the int8 codec from the host tier down: every spilled
+       and fetched page moves ``numel + 4`` bytes on the wire; one spilled
+       page decodes within ``roundtrip_bound``; the logits of the first
+       decode step that reads a page fetched back from the host tier move
+       (RMS over the live rows) no further from the ``none`` run's than a
+       ±``roundtrip_bound`` perturbation of every page of those rows moves
+       them (seeded signs); the share of equal tokens is reported.
+    3. ``session.overlap()`` per tier pair is reported, it agrees with the
+       transfer counters, and ``export_trace`` passes ``obs.check``.
+    4. ``session.recalibrate()``: measured device<->host rates, spec and
+       ``required_inflight`` reported; the trace run again gives the same
+       tokens.
+    5. ``session.paged_kv`` over int8 pages: ``attend_fused`` launches the
+       paged kernel, held against ``attend`` by the bf16 rule (2e-2).
+    6. ``session.executor``: a planned graph on the card, its residency
+       trace equal to ``core.memsim``'s, values equal to the resident
+       baseline's (fp32, 1e-6).
+    7. ``repro_torch.launch.serve.main`` in process (``LAUNCH_ARGV``):
+       returns 0, one flash launch per layer per prefill and one ring
+       launch per layer per decode step."""
+    from repro_torch.api import HyperOffloadSession, OffloadConfig
+    from repro_torch.api.config import KVCodecConfig, TelemetryConfig
+    from repro_torch.offload import worst_case_page_bytes
+    from repro_torch.sched import poisson_trace
+
+    cfg = model.cfg
+    n_attn, _ = mixers(cfg)
+    trace = poisson_trace(vocab_size=cfg.vocab_size, **SCHED_TRACE)
+    row = worst_case_page_bytes(model.cache_specs(1, MAX_SEQ, torch.bfloat16))
+    numel = MAX_SEQ * cfg.n_kv_heads * cfg.head_dim   # one (layer, leaf) page
+
+    def config(codec):
+        return OffloadConfig(
+            mode="kv_offload", max_batch=BATCH, max_seq=MAX_SEQ,
+            cache_dtype="bfloat16", device_capacity=int(1.5 * row),
+            kv_codec=KVCodecConfig(codec=codec),
+            telemetry=TelemetryConfig(enable=True,
+                                      ring_capacity=SESSION_RING))
+
+    log("session", arch=cfg.name, row_bytes=row, page_numel=numel,
+        device_tier_bytes=int(1.5 * row),
+        predicted_wire_ratio=f"{(numel + 4) / (2 * numel):.6f}")
+    none_probe = {"keep_args": True}
+    with HyperOffloadSession(config("none"), device=dev) as sess:
+        none = sched_run(torch, dev, kernels, model, params, trace,
+                         "session-none", {}, n_attn, session=sess,
+                         probe=none_probe)
+        assert none["tokens"] == spill["tokens"], \
+            "session tokens differ from the hand-built kv_offload-spill run"
+        assert none["stats"] == spill["stats"], (none["stats"], spill["stats"])
+        log("session", check="session == hand-built kv_offload-spill",
+            tokens_equal=True, stats=json.dumps(none["stats"]))
+        session_telemetry(sess, "none")
+        session_executor(torch, dev, sess)
+        session_recalibrate(torch, dev, kernels, model, params, trace,
+                            n_attn, sess, none)
+
+    int8_probe = {}
+    with HyperOffloadSession(config("int8"), device=dev) as sess:
+        host = sess.pool.tiers["host"].backend
+        first = capture_first_spill(torch, host)
+        q = sched_run(torch, dev, kernels, model, params, trace,
+                      "session-int8", {}, n_attn, session=sess,
+                      probe=int8_probe)
+        check_wire_bytes(none["pool"], q["pool"], numel)
+        check_spilled_page(torch, host, first)
+        matching = _matching(none["tokens"], q["tokens"])
+        total = sum(len(v) for v in none["tokens"].values())
+        log("session", check="tokens, int8 vs none (reported)",
+            matching=matching, of=total, share=f"{matching / total:.4f}",
+            identical_requests=sum(none["tokens"][k] == q["tokens"][k]
+                                   for k in none["tokens"]))
+        check_codec_logits(torch, model, params, none_probe, int8_probe)
+        session_telemetry(sess, "int8")
+        codec_costs(torch, dev, sess)
+        session_paged(torch, dev, kernels, sess)
+    del none_probe, int8_probe
+    torch.cuda.empty_cache()
+    session_launcher(torch, dev, kernels, n_attn)
+
+
+def capture_first_spill(torch, backend):
+    """Wrap a codec tier's ``put`` to keep the first page encoded into it
+    (a clone of the value and the handle)."""
+    put, first = backend.put, {}
+
+    def keep(value, reuse=None):
+        handle = put(value, reuse)
+        if "page" not in first and isinstance(value, torch.Tensor):
+            first["page"], first["handle"] = value.clone(), handle
+        return handle
+
+    backend.put = keep
+    return first
+
+
+def check_wire_bytes(none_snap, q_snap, numel) -> None:
+    """Every page the int8 tier holds moved ``numel + 4`` bytes each way;
+    the device tier still stores decoded pages (2 bytes an element)."""
+    wire = numel + 4
+    pairs, pairs0 = q_snap["transfer"]["pairs"], none_snap["transfer"]["pairs"]
+    d2h, h2d = pairs["device->host"], pairs["host->device"]
+    assert d2h["bytes"] == d2h["transfers"] * wire, d2h
+    assert h2d["bytes"] == h2d["transfers"] * wire, h2d
+    assert q_snap["bytes_evicted"] == d2h["bytes"], q_snap
+    assert q_snap["bytes_stored"] == q_snap["puts"] * 2 * numel, q_snap
+    assert pairs0["device->host"]["bytes"] == \
+        pairs0["device->host"]["transfers"] * 2 * numel, pairs0
+    assert d2h["transfers"] == pairs0["device->host"]["transfers"], \
+        (d2h, pairs0["device->host"])
+    log("session", check="int8 wire bytes", page_wire_bytes=wire,
+        page_decoded_bytes=2 * numel, spills=d2h["transfers"],
+        fetches_from_host=h2d["transfers"],
+        spill_bytes=f"{pairs0['device->host']['bytes']}->{d2h['bytes']}",
+        fetch_bytes=f"{pairs0['host->device']['bytes']}->{h2d['bytes']}",
+        wire_ratio=f"{d2h['bytes'] / pairs0['device->host']['bytes']:.6f}",
+        host_peak_bytes=f"{none_snap['tier/host']['peak']}->"
+                        f"{q_snap['tier/host']['peak']}")
+
+
+def check_spilled_page(torch, backend, first) -> None:
+    """The first spilled page, decoded from its pinned payload, lies within
+    ``roundtrip_bound`` of the value that was put."""
+    from repro_torch.pool import roundtrip_bound
+
+    page, handle = first["page"], first["handle"]
+    # the payload waits in pinned memory, the scale on the page's device
+    assert handle.payload.is_pinned() and handle.scale.device == page.device
+    back = backend.get(handle)
+    err = (back.float() - page.float()).abs().max().item()
+    bound = roundtrip_bound(backend.codec, page.float().abs().max().item())
+    log("session", check="spilled page round trip", shape=list(page.shape),
+        dtype=str(page.dtype).replace("torch.", ""),
+        max_abs_err=f"{err:.4e}", bound=f"{bound:.4e}")
+    assert back.dtype == page.dtype and back.shape == page.shape
+    # the decode rounds to bf16 once more: half a bf16 ulp of the page's
+    # largest element (at most absmax * 2^-8) on top of the codec's bound
+    assert err <= bound + page.float().abs().max().item() * 2.0 ** -8, \
+        (err, bound)
+
+
+def check_codec_logits(torch, model, params, none_probe, q_probe) -> None:
+    """The first decode step that reads a page fetched back from the host
+    tier: its inputs differ between the ``none`` and int8 runs only by the
+    codec (every earlier value is the same in both). Tolerance, from
+    ``roundtrip_bound``: the RMS move of the live rows' logits when every
+    page of those rows (all layers, K and V, the ``none`` run's cache)
+    moves by ±roundtrip_bound with seeded signs — larger than anything the
+    codec can do, which moves each element of the fetched pages by at most
+    that bound."""
+    from repro_torch.pool import make_codec, roundtrip_bound
+    from repro_torch.serving.engine import jit_decode
+
+    assert none_probe.get("call") is not None, "no page came back from host"
+    assert q_probe.get("call") == none_probe["call"], (q_probe, none_probe)
+    rows = none_probe["rows"]
+    assert q_probe["rows"] == rows, (q_probe["rows"], rows)
+    codec = make_codec("int8")
+    cache, tok, pos = none_probe["args"]
+    decode = jit_decode(model)
+    gen = torch.Generator(device=tok.device).manual_seed(7)
+
+    def perturb(leaf):
+        out = leaf.clone()
+        for ri in range(leaf.shape[0]):
+            for slot in rows:
+                page = leaf[ri, slot].float()
+                bound = roundtrip_bound(codec, page.abs().max().item())
+                sign = torch.randint(0, 2, page.shape, device=leaf.device,
+                                     generator=gen) * 2.0 - 1.0
+                out[ri, slot] = (page + sign * bound).to(leaf.dtype)
+        return out
+
+    with torch.inference_mode():
+        base = decode(params, _tree_map(lambda t: t.clone(), cache), tok,
+                      pos)[0][:, 0].float()
+        moved = decode(params, _tree_map(perturb, cache), tok,
+                       pos)[0][:, 0].float()
+    ref = none_probe["logits"][rows]
+
+    def rms(a, b):
+        return (a - b).pow(2).mean().sqrt().item()
+
+    rms_q = rms(q_probe["logits"][rows], ref)
+    rms_tol = rms(moved[rows], base[rows])
+    log("session", check="int8 decode logits after a host fetch",
+        decode_call=none_probe["call"], rows=rows,
+        rms_vs_none=f"{rms_q:.4e}", rms_tol=f"{rms_tol:.4e}",
+        max_abs_vs_none=f"{(q_probe['logits'][rows] - ref).abs().max().item():.4e}",
+        rerun_vs_captured_max_abs=f"{(base[rows] - ref).abs().max().item():.3e}",
+        same_argmax_share=f"{(q_probe['logits'][rows].argmax(-1) == ref.argmax(-1)).float().mean().item():.4f}",
+        logit_rms=f"{ref.pow(2).mean().sqrt().item():.4f}")
+    assert bool(torch.isfinite(q_probe["logits"]).all())
+    assert rms_q <= rms_tol, (rms_q, rms_tol)
+    del base, moved, cache
+    torch.cuda.empty_cache()
+
+
+def session_telemetry(sess, label: str) -> None:
+    """``session.overlap()`` per tier pair, its agreement with the transfer
+    counters, and the exported trace through ``obs.check``."""
+    import tempfile
+
+    from repro_torch.obs import OverlapAnalyzer
+    from repro_torch.obs.check import validate_file
+
+    rep = sess.overlap()
+    by_tier = {k: {"transfers": v["transfers"],
+                   "hidden_s": round(v["hidden_s"], 6),
+                   "exposed_s": round(v["exposed_s"], 6),
+                   "hidden_fraction": (None if v["hidden_fraction"] is None
+                                       else round(v["hidden_fraction"], 4))}
+               for k, v in rep["by_tier"].items()}
+    errs = OverlapAnalyzer.from_tracer(sess.tracer).validate(
+        sess.pool.snapshot()["transfer"])
+    trace_snap = sess.tracer.snapshot()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = str(Path(tmp) / "session_trace.json")
+        sess.export_trace(path)
+        bad = validate_file(path)
+        size = Path(path).stat().st_size
+    log("session", codec=label, overlap=json.dumps(by_tier),
+        hidden_s=f"{rep['hidden_s']:.4f}", exposed_s=f"{rep['exposed_s']:.4f}",
+        hidden_fraction=rep["hidden_fraction"],
+        orphan_waits=rep["orphan_waits"], trace=json.dumps(trace_snap),
+        trace_file_bytes=size, check_errors=len(bad),
+        counters_disagree=len(errs))
+    assert bad == [], bad[:5]
+    assert errs == [], errs
+    assert rep["transfers"] > 0 and "host->device" in rep["by_tier"]
+
+
+def session_recalibrate(torch, dev, kernels, model, params, trace, n_attn,
+                        sess, before) -> None:
+    """``session.recalibrate()``, then the trace again through a new
+    scheduler of the session (planned under the measured spec): the same
+    tokens."""
+    from repro_torch.core.calibration import (
+        measurements_from_pairs, required_inflight,
+    )
+
+    static = sess.hw
+    workers0 = sess.transfer.workers
+    cal = sess.config.calibration
+    ms = measurements_from_pairs(sess.transfer.stats.snapshot()["pairs"])
+    pages = max(s.prefetcher.stats.mean_fetches_per_step
+                for s in sess._schedulers if s.prefetcher is not None)
+    window = sess._overlap_window_s()
+    need = required_inflight(ms, pages_per_step=pages, window_s=window,
+                             device_tier="device", cap=cal.max_inflight,
+                             min_transfers=cal.min_transfers,
+                             min_bytes=cal.min_bytes)
+    spec, cal_s = synced_s(torch, sess.recalibrate)
+    gbps = {f"{a}->{b}": round(spec.bandwidth_between(a, b) / 1e9, 3)
+            for a, b in (("device", "host"), ("host", "device"),
+                         ("device", "device"))}
+    log("session", check="recalibrate", static_hw=static.name,
+        hw=spec.name, measured_gb_per_s=json.dumps(gbps),
+        pool_bw_d2r_gbps=f"{spec.pool_bw_d2r / 1e9:.3f}",
+        pool_bw_r2d_gbps=f"{spec.pool_bw_r2d / 1e9:.3f}",
+        pages_per_step=f"{pages:.2f}", overlap_window_ms=f"{window * 1e3:.3f}",
+        required_inflight=need, workers=f"{workers0}->{sess.transfer.workers}",
+        depth=sess.transfer.depth, recalibrate_s=f"{cal_s:.3f}")
+    assert spec.name == f"{static.name}+measured", spec.name
+    assert sess.planner.hw is spec
+    again = sched_run(torch, dev, kernels, model, params, trace,
+                      "session-none-recalibrated", {}, n_attn, session=sess)
+    assert again["tokens"] == before["tokens"], \
+        "tokens changed after recalibration"
+    assert _same_work(again["stats"]) == _same_work(before["stats"]), \
+        (again["stats"], before["stats"])
+    log("session", check="tokens after recalibration", equal=True,
+        plan_hw=spec.name)
+
+
+def codec_costs(torch, dev, sess) -> None:
+    """What one page's encode and decode cost at the sched phase's page
+    shape (one (layer, leaf) row: MAX_SEQ x 32 x 96, bf16): the host ms to
+    issue each (no sync), its device ms (CUDA events over many calls), and
+    a ``CodecBackend`` put (encode + pinned D2H, synced) and get (H2D +
+    decode, synced) through the session's host tier."""
+    host = sess.pool.tiers["host"].backend
+    codec = host.codec
+    gen = torch.Generator(device=dev).manual_seed(11)
+    page = torch.randn(MAX_SEQ, 32, 96, device=dev, generator=gen).to(
+        torch.bfloat16)
+    q, scale = codec.encode(page)
+    n = 50
+
+    def per_call(fn):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        host_ms = (time.perf_counter() - t0) / n * 1e3
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), \
+            torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(n):
+            fn()
+        end.record()
+        end.synchronize()
+        return host_ms, start.elapsed_time(end) / n
+
+    enc_host, enc_dev = per_call(lambda: codec.encode(page))
+    dec_host, dec_dev = per_call(lambda: codec.decode(q, scale,
+                                                      torch.bfloat16))
+    handle = host.put(page)
+    put_s, get_s = [], []
+    for _ in range(10):
+        handle, t = synced_s(torch, lambda: host.put(page, handle))
+        put_s.append(t)
+        _, t = synced_s(torch, lambda: host.get(handle))
+        get_s.append(t)
+    log("session", check="codec cost per page", codec=codec.name,
+        page_bytes=page.numel() * 2, wire_bytes=handle.nbytes,
+        encode_host_ms=f"{enc_host:.4f}", encode_device_ms=f"{enc_dev:.4f}",
+        decode_host_ms=f"{dec_host:.4f}", decode_device_ms=f"{dec_dev:.4f}",
+        put_ms_synced=f"{sorted(put_s)[5] * 1e3:.4f}",
+        get_ms_synced=f"{sorted(get_s)[5] * 1e3:.4f}")
+
+
+def session_paged(torch, dev, kernels, sess) -> None:
+    """``session.paged_kv`` (phi3's attention widths, int8 pages in the
+    host tier, an 8-page device buffer): ``attend_fused`` through the paged
+    kernel against ``attend`` (the gather path, plain) over the same
+    quantized pages, top 8 pages, by the bf16 rule."""
+    from repro_torch.kernels import ops
+
+    b, hq, hkv, d = BATCH, 32, 32, 96
+    bf16, tol, scale = torch.bfloat16, 2e-2, d ** -0.5
+    gen = torch.Generator(device=dev).manual_seed(12)
+    steps = 8
+    total = PAGED_CONTEXT + steps
+    k_seq = torch.randn(b, total, hkv, d, device=dev, generator=gen).to(bf16)
+    v_seq = torch.randn(b, total, hkv, d, device=dev, generator=gen).to(bf16)
+    qs = torch.randn(steps, b, hq, d, device=dev, generator=gen).to(bf16)
+    ops.reset_launch_counts()
+    cache = sess.paged_kv(batch=b, n_kv_heads=hkv, head_dim=d,
+                          max_seq=MAX_SEQ, dtype=bf16, device_pages=8)
+    cache.prefill(k_seq[:, :PAGED_CONTEXT], v_seq[:, :PAGED_CONTEXT])
+    worst, fused_s = 0.0, 0.0
+    for t in range(steps):
+        cache.append(k_seq[:, PAGED_CONTEXT + t], v_seq[:, PAGED_CONTEXT + t])
+        q = qs[t].contiguous()
+        fused, dt = synced_s(torch, lambda: cache.attend_fused(
+            q, scale=scale, top_k_pages=8))
+        fused_s += dt
+        with_counts = ops.launch_counts()
+        gather = cache.attend(q, scale=scale, top_k_pages=8)
+        assert ops.launch_counts() == with_counts     # the gather is plain
+        err = (fused.float() - gather.float()).abs().max().item()
+        worst = max(worst, err)
+        assert torch.allclose(fused.float(), gather.float(), atol=tol,
+                              rtol=tol), (t, err)
+    counts = ops.launch_counts()
+    kernels["paged_decode_attention"]["launches"] += \
+        counts["paged_decode_attention"]
+    assert counts["paged_decode_attention"] == steps, counts
+    key = cache.k_pool[0]
+    entry = sess.pool.entries[key]
+    page_numel = b * cache.page_size * hkv * d
+    assert entry.tier == "host" and entry.nbytes == page_numel + 4, \
+        (entry.tier, entry.nbytes)
+    log("session", check="paged_kv attend_fused (kernel) vs attend (gather)",
+        pages=cache.full_pages, tail=cache.tail_len, steps=steps,
+        max_abs_err=f"{worst:.3e}", tol=tol,
+        launches=counts["paged_decode_attention"],
+        page_wire_bytes=entry.nbytes, page_decoded_bytes=2 * page_numel,
+        buffer_hits=cache.buffer_hits, buffer_misses=cache.buffer_misses,
+        fused_ms_per_step=f"{fused_s / steps * 1e3:.3f}")
+
+
+def _small_graph(ir):
+    """A 4-layer chain with remote weights and an offloadable activation
+    gap (``tests/conftest.py``'s ``small_graph``)."""
+    g = ir.Graph()
+    g.add_tensor("x", 1 << 20)
+    prev = "x"
+    for i in range(4):
+        g.add_tensor(f"w{i}", 64 << 20, "weight", "remote")
+        g.add_tensor(f"h{i}", 1 << 20)
+        g.compute(f"f{i}", inputs=(prev, f"w{i}"), outputs=(f"h{i}",),
+                  flops=5e11, hbm_bytes=1e6)
+        prev = f"h{i}"
+    g.add_tensor("skip", 128 << 20)
+    g.nodes["f0"].outputs = ("h0", "skip")
+    g.add_tensor("y", 1 << 20)
+    g.compute("tail", inputs=("h3", "skip"), outputs=("y",),
+              flops=5e11, hbm_bytes=1e6)
+    return g
+
+
+def session_executor(torch, dev, sess) -> None:
+    """The session's planner plans a small graph; the pool executor runs
+    it on the card and its residency trace equals ``core.memsim``'s. Then
+    ``session.executor`` runs a planned chain of tanh(x @ w) with remote
+    weights, fp32: values equal the resident baseline's within 1e-6."""
+    from repro_torch.core import ir, memsim
+    from repro_torch.core.torch_exec import run_baseline
+    from repro_torch.pool import OffloadPlanExecutor
+
+    plan = sess.plan(_small_graph(ir))
+    predicted = memsim.simulate(plan.graph, plan.order)
+    (env, trace), run_s = synced_s(
+        torch, lambda: OffloadPlanExecutor(plan, sess.pool).run())
+    assert env["y"].device == dev
+    assert trace.matches(predicted), (trace.usage, predicted.usage)
+    assert trace.prefetches > 0
+    del env
+    d = 256
+    g = ir.Graph()
+    g.add_tensor("x", d * d * 4)
+    prev = "x"
+    fns, inputs = {}, {}
+    gen = torch.Generator(device=dev).manual_seed(13)
+    for i in range(5):
+        g.add_tensor(f"w{i}", 64 << 20, "weight", "remote")
+        g.add_tensor(f"h{i}", d * d * 4)
+        g.compute(f"f{i}", inputs=(prev, f"w{i}"), outputs=(f"h{i}",),
+                  flops=1e12, hbm_bytes=1e6)
+        fns[f"f{i}"] = lambda x, w: (torch.tanh(x @ w),)
+        inputs[f"w{i}"] = 0.1 * torch.randn(d, d, device=dev, generator=gen)
+        prev = f"h{i}"
+    inputs["x"] = torch.randn(d, d, device=dev, generator=gen)
+    chain = sess.plan(g)
+    out = sess.executor(chain.graph, fns).run(inputs, chain.order)
+    ref = run_baseline(g, fns, inputs, device=dev)
+    err = (out["h4"] - ref["h4"]).abs().max().item()
+    log("session", check="plan executor on the card", plan_hw=sess.hw.name,
+        nodes=len(plan.order), prefetches=trace.prefetches,
+        stores=trace.stores, detaches=trace.detaches,
+        peak_bytes=trace.peak_bytes, residency_equals_memsim=True,
+        run_s=f"{run_s:.3f}", chain_max_abs_err=f"{err:.3e}", tol=1e-6)
+    assert torch.allclose(out["h4"], ref["h4"], atol=1e-6, rtol=0), err
+
+
+def session_launcher(torch, dev, kernels, n_attn) -> None:
+    """``python -m repro_torch.launch.serve`` in process, at phi3's full
+    width (``LAUNCH_ARGV``): generate, recalibrate, generate again. One
+    flash launch per layer per prefill, one ring launch per layer per
+    decode step."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve as launcher
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    # the main path: counts set to 0 just before, read just after
+    ops.reset_launch_counts()
+    rc, wall = synced_s(torch, lambda: launcher.main(LAUNCH_ARGV))
+    counts = ops.launch_counts()
+    for name, n in counts.items():
+        kernels[name]["launches"] += n
+    generates = 2
+    log("session", launcher=" ".join(LAUNCH_ARGV), rc=rc,
+        wall_s=f"{wall:.3f}", launches=json.dumps(counts),
+        max_allocated_gb=f"{torch.cuda.max_memory_allocated() / 1e9:.2f}")
+    assert rc == 0
+    assert counts == {"flash_attention": generates * n_attn,
+                      "paged_decode_attention": 0,
+                      "decode_attention": generates * (NEW_TOKENS - 1)
+                      * n_attn,
+                      "ssd_scan": 0}, counts
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# 6. paged: fused decode over pool pages
 # ---------------------------------------------------------------------------
 
 
@@ -1621,7 +2185,7 @@ def phase_paged(torch, dev, kernels) -> None:
 
 
 # ---------------------------------------------------------------------------
-# 6. hybrid: zamba2-7b, resident and offload_kv; 7. ring decode on its caches
+# 7. hybrid: zamba2-7b, resident and offload_kv; 8. ring decode on its caches
 # ---------------------------------------------------------------------------
 
 
@@ -1689,7 +2253,7 @@ def phase_ring(torch, dev, kernels, model, params, tokens) -> None:
 
 
 # ---------------------------------------------------------------------------
-# 8. ssm: mamba2-370m forward
+# 9. ssm: mamba2-370m forward
 # ---------------------------------------------------------------------------
 
 

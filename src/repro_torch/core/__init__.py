@@ -1,5 +1,5 @@
 """HyperOffload core: graph-driven hierarchical memory management (the
-port's copy of ``repro.core``; none of it touches a tensor).
+port's copy of ``repro.core``; only ``torch_exec`` touches a tensor).
 
 - ``ir``         — computation graph with first-class cache operators
 - ``costmodel``  — hardware model (compute, HBM, pool links); ``H100`` is
@@ -11,9 +11,15 @@ port's copy of ``repro.core``; none of it touches a tensor).
 - ``schedule``   — Algorithm 1: graph-driven execution-order optimization
 - ``timeline``   — dual-stream (compute + DMA) execution timeline simulator
 - ``planner``    — end-to-end pipeline producing an OffloadPlan
+- ``calibration``— measured transfer telemetry → CalibratedHardwareSpec
 - ``tracer``     — ModelConfig → layer-level graphs (train/prefill/decode)
+- ``torch_exec`` — execute a plan on real tensors through the pool
 """
 
+from repro_torch.core.calibration import (
+    CalibratedHardwareSpec, TierPairMeasurement, calibrate,
+    measurements_from_pairs, required_inflight,
+)
 from repro_torch.core.costmodel import ASCEND_LIKE, H100, TPU_V5E, HardwareSpec
 from repro_torch.core.ir import Graph, Node, TensorInfo
 from repro_torch.core.planner import HyperOffloadPlanner, OffloadPlan
@@ -26,6 +32,11 @@ __all__ = [
     "ASCEND_LIKE",
     "H100",
     "TPU_V5E",
+    "CalibratedHardwareSpec",
+    "TierPairMeasurement",
+    "calibrate",
+    "measurements_from_pairs",
+    "required_inflight",
     "HyperOffloadPlanner",
     "OffloadPlan",
 ]

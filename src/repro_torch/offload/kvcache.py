@@ -85,8 +85,18 @@ class KVPageTable:
         self.pool.put(key, value, tier, priority=priority)
         return key
 
+    def prefetch(self, label: str) -> TransferHandle:
+        """Issue the page's fetch through the transfer engine; the handle's
+        ``wait()`` yields the device tensor."""
+        return self.pool.prefetch(self.keys[label])
+
     def fetch(self, label: str) -> torch.Tensor:
         return self.pool.get(self.keys[label])
+
+    def tiers(self) -> Dict[str, str]:
+        """label -> tier currently holding the page."""
+        return {lb: self.pool.tier_of(k) for lb, k in self.keys.items()
+                if k in self.pool}
 
     def drop(self) -> None:
         """Retire the request: drop every page still in the pool."""
@@ -174,7 +184,9 @@ class PagedKVCache:
         n_pages = -(-max_seq // page_size)
         if pool is None:
             raise ValueError("PagedKVCache.create() requires a pool "
-                             "(repro_torch.pool.default_pool)")
+                             "(construct it through "
+                             "repro_torch.api.HyperOffloadSession, or pass "
+                             "repro_torch.pool.default_pool())")
         if device_pages is not None and device_pages < 1:
             raise ValueError("device_pages must be >= 1 (or None = all)")
         pool.transfer.ensure_depth(auto_depth(pages=n_pages))

@@ -14,6 +14,10 @@ Backends are selected per tier by a declarative ``TierSpec.kind``
   the spec's per-direction bandwidth and latency. Unthrottled it is a plain
   CPU tier.
 
+``CodecBackend`` wraps any of these below a tier boundary with a KV page
+codec (``pool.codec``): pages are encoded on ``put`` and decoded on
+``get``.
+
 Every backend stores a snapshot: ``put`` copies, and ``get`` hands back a
 new tensor on the pool's device that the caller owns (callers update their
 tensors in place, so neither side may alias the stored copy). A backend
@@ -24,10 +28,13 @@ the host tier, pins — its buffer once.
 
 from __future__ import annotations
 
+import dataclasses
 import time
 from typing import Any, Callable, Optional
 
 import torch
+
+from repro_torch.pool import codec as codec_mod
 
 DEVICE_TIER = "device"
 HOST_TIER = "host"
@@ -194,6 +201,64 @@ class CpuTensorBackend(MemoryBackend):
 
     def holds(self, handle: Any) -> bool:
         return isinstance(handle, torch.Tensor) and handle.device.type == "cpu"
+
+
+class CodecBackend(MemoryBackend):
+    """A storage tier behind a KV page codec: encodes on ``put``, decodes
+    on ``get``.
+
+    The handle is an ``EncodedPage`` whose payload is stored through the
+    wrapped backend, so the inner tier's character (pinned copy stream,
+    modeled throttle) applies to the *encoded* bytes. The encode runs on
+    the caller's current stream, after the page's producer; the inner
+    put's copy then orders after it. The decode runs after the inner get's
+    copy, on the same stream — under a prefetch that is the transfer
+    engine's copy stream, whose event the consumer waits on. A re-put hands
+    the previous handle's payload to the inner backend for reuse, so a
+    pinned payload buffer is made once per entry. Spilling an
+    ``EncodedPage`` into another tier of the same codec moves the payload
+    as it is. ``wire_nbytes``/``nbytes`` report the encoded size."""
+
+    def __init__(self, inner: MemoryBackend, codec: "codec_mod.KVCodec"
+                 ) -> None:
+        self.inner = inner
+        self.codec = codec
+        self.device = inner.device
+        self.name = f"{codec.name}[{inner.name}]"
+
+    def put(self, value: Any, reuse: Any = None) -> "codec_mod.EncodedPage":
+        if isinstance(value, codec_mod.EncodedPage):
+            if value.codec != self.codec.name:
+                raise ValueError(
+                    f"cannot move a {value.codec!r}-encoded page into a "
+                    f"{self.codec.name!r} tier without decoding first")
+            # spill between codec tiers: move the encoded payload only
+            return dataclasses.replace(
+                value, payload=self.inner.put(value.payload))
+        payload, scale = self.codec.encode(value)
+        prior = reuse.payload if isinstance(
+            reuse, codec_mod.EncodedPage) else None
+        return codec_mod.EncodedPage(
+            codec=self.codec.name, payload=self.inner.put(payload, prior),
+            scale=scale, dtype=value.dtype, shape=tuple(value.shape),
+            nbytes=self.codec.encoded_nbytes(value.shape))
+
+    def get(self, handle: "codec_mod.EncodedPage") -> torch.Tensor:
+        payload = self.inner.get(handle.payload)
+        return self.codec.decode(payload, handle.scale.to(payload.device),
+                                 handle.dtype)
+
+    def nbytes(self, handle: "codec_mod.EncodedPage") -> int:
+        return int(handle.nbytes)
+
+    def wire_nbytes(self, value: Any) -> int:
+        if isinstance(value, codec_mod.EncodedPage):
+            return int(value.nbytes)
+        return self.codec.encoded_nbytes(value.shape)
+
+    def holds(self, handle: Any) -> bool:
+        return (isinstance(handle, codec_mod.EncodedPage)
+                and self.inner.holds(handle.payload))
 
 
 def backend_for(spec, device: torch.device,

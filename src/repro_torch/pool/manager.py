@@ -19,6 +19,11 @@ occupancy and high-water mark) and surfaced by ``snapshot()``; synchronous
 movement (puts, spills, blocking gets) also lands in the transfer engine's
 per tier-pair table.
 
+A tier below a codec boundary (``default_pool(codec=...)``) stores encoded
+pages: every byte counter, tier occupancy and the per tier-pair table see
+the encoded (on-wire) size, and admission counts such a tier at its
+decoded-equivalent capacity (``tier_scale``).
+
 Re-putting a key whose entry sits in the same tier copies into the entry's
 existing buffer when shape and type match — the serving engine re-puts the
 same cache leaves every decode step, and pinning a fresh host buffer each
@@ -38,6 +43,7 @@ import torch
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.obs.trace import NULL_TRACER
 from repro_torch.pool import backend as B
+from repro_torch.pool import codec as codec_mod
 from repro_torch.pool.topology import TierTopology
 from repro_torch.pool.transfer import TransferEngine, TransferHandle
 
@@ -114,6 +120,12 @@ class MemoryPoolManager:
         self._reservations: Dict[
             str, Tuple[int, Tuple[str, ...], Optional[str]]] = {}
         self._evict_listeners: List[Callable[[PoolEntry, str], None]] = []
+
+    def set_tracer(self, tracer) -> None:
+        """Attach or replace the tracer on the pool and its transfer engine
+        (the session wires its telemetry into a pool it was handed)."""
+        self.tracer = tracer if tracer is not None else NULL_TRACER
+        self.transfer.set_tracer(tracer)
 
     # -- topology-derived roles ----------------------------------------
     @property
@@ -321,11 +333,13 @@ class MemoryPoolManager:
             return cap - used - self.reserved_bytes(tiers)
 
     def tier_scale(self, name: str, itemsize: Optional[int]) -> float:
-        """On-wire bytes per decoded byte for entries at rest in ``name``.
-        Always 1.0 here: no tier of the port encodes its pages (the page
-        codecs are not ported), so a page occupies its decoded size."""
-        self._tier(name)
-        return 1.0
+        """On-wire bytes per decoded byte for entries at rest in ``name``:
+        the codec's ratio on a codec-wrapped tier, else 1.0. ``None``
+        itemsize → 1.0 (raw-byte accounting)."""
+        b = self._tier(name).backend
+        if itemsize is None or not isinstance(b, B.CodecBackend):
+            return 1.0
+        return b.codec.ratio(int(itemsize))
 
     def _capacity_used(self, tiers: Sequence[str],
                        itemsize: Optional[int] = None
@@ -449,6 +463,8 @@ class MemoryPoolManager:
             raise PoolCapacityError(
                 f"cannot evict {entry.key!r}: {entry.tier!r} is the last tier")
         src_st, dst_st = self._tier(entry.tier), self._tier(dst)
+        # a spill into a codec tier encodes (fewer wire bytes); one between
+        # two codec tiers moves the payload as it is
         new_nbytes = int(dst_st.backend.wire_nbytes(entry.handle))
         self._make_room(dst_st, new_nbytes)
         t_x = time.perf_counter()
@@ -481,12 +497,21 @@ def default_pool(host_capacity: Optional[int] = None,
                  topology: Optional[TierTopology] = None,
                  transfer_depth: Optional[int] = None,
                  transfer_workers: int = 2,
+                 codec: Optional[str] = None,
+                 codec_below: Optional[str] = None,
                  tracer=None) -> MemoryPoolManager:
     """Build a pool from a declarative ``TierTopology`` — by default the
     standard three-tier chain: device → host → modeled remote (unthrottled).
     ``device`` defaults to CUDA (``device="cpu"`` runs the whole chain in
     CPU memory). Capacities go either through the per-tier kwargs (the
-    default chain only) or inside an explicit ``topology`` — never both."""
+    default chain only) or inside an explicit ``topology`` — never both.
+
+    ``codec`` names a KV page codec (``"int8"``/``"fp8"``; ``None``/
+    ``"none"`` disables). Every tier from ``codec_below`` (default: the
+    topology's default store tier) down to the bottom of the chain gets its
+    backend wrapped in a ``CodecBackend``: pages quantize once on arrival
+    below the boundary, and spills deeper down move the payload as it is.
+    The boundary must not be a device tier."""
     dev = resolve_device(device)
     if topology is None:
         topology = TierTopology.default(device_capacity=device_capacity,
@@ -500,7 +525,26 @@ def default_pool(host_capacity: Optional[int] = None,
     if transfer is None:
         transfer = TransferEngine(depth=transfer_depth or 2,
                                   workers=transfer_workers)
-    tiers = [TierState(s.name, B.backend_for(s, dev, transfer.copy_stream),
-                       s.capacity) for s in topology.tiers]
+    codec_obj = codec_mod.make_codec(codec)
+    boundary = codec_below if codec_below is not None \
+        else topology.default_store_tier
+    if codec_obj is not None and boundary not in topology.names:
+        raise ValueError(
+            f"kv_codec boundary tier {boundary!r} not in topology "
+            f"{list(topology.names)}")
+    tiers = []
+    below = False
+    for s in topology.tiers:
+        b = B.backend_for(s, dev, transfer.copy_stream)
+        if codec_obj is not None:
+            below = below or s.name == boundary
+            if below:
+                if isinstance(b, B.DeviceBackend):
+                    raise ValueError(
+                        f"kv_codec boundary {boundary!r} would wrap "
+                        f"accelerator tier {s.name!r}; pick an "
+                        "off-accelerator tier")
+                b = B.CodecBackend(b, codec_obj)
+        tiers.append(TierState(s.name, b, s.capacity))
     return MemoryPoolManager(tiers, transfer=transfer, tracer=tracer,
                              topology=topology)

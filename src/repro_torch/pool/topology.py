@@ -14,7 +14,7 @@ the remote slot.
 from __future__ import annotations
 
 from dataclasses import asdict, dataclass, field
-from typing import Any, Dict, Iterator, Mapping, Optional, Tuple
+from typing import Any, Dict, Iterator, Mapping, Optional, Sequence, Tuple
 
 TIER_KINDS = ("device", "host", "numpy", "modeled")
 
@@ -173,3 +173,21 @@ class TierTopology:
         return cls(tiers=tuple(
             s if isinstance(s, TierSpec) else TierSpec.from_dict(s)
             for s in specs))
+
+
+def sweep_topologies(base: TierTopology, tier: str, *,
+                     read_bws: Sequence[float]) -> Tuple[TierTopology, ...]:
+    """A bandwidth sweep: one topology per grid point, varying ``tier``'s
+    read bandwidth (the tier must be ``modeled``)."""
+    spec = base.spec(tier)
+    if spec.kind != "modeled":
+        raise ValueError(f"can only sweep a modeled tier, {tier!r} is "
+                         f"{spec.kind!r}")
+    out = []
+    for bw in read_bws:
+        tiers = tuple(
+            TierSpec(**{**t.to_dict(), "read_bw": float(bw)})
+            if t.name == tier else t
+            for t in base.tiers)
+        out.append(TierTopology(tiers=tiers))
+    return tuple(out)

@@ -174,6 +174,22 @@ class TransferEngine:
             if not self.depth_pinned:
                 self.depth = max(self.depth, int(depth))
 
+    def ensure_workers(self, workers: int) -> None:
+        """Raise the worker-thread count to at least ``workers`` (never
+        lowers): the knob the calibration loop turns when a step's fetches
+        need more transfers in flight than the workers allow. Drains the
+        outstanding transfers, then swaps the thread pool — call it at a
+        step boundary, where every consumer has already waited."""
+        workers = int(workers)
+        if workers <= self.workers:
+            return
+        self.drain()
+        old = self._pool
+        self._pool = ThreadPoolExecutor(max_workers=workers,
+                                        thread_name_prefix="pool-xfer")
+        self.workers = workers
+        old.shutdown(wait=True)
+
     def record_pair(self, src: str, dst: str, nbytes: int,
                     seconds: float) -> None:
         """Record one synchronous transfer into the per-pair table."""

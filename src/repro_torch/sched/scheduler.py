@@ -213,7 +213,9 @@ class ContinuousScheduler:
             if cfg.kv_offload:
                 raise ValueError(
                     "ContinuousScheduler(kv_offload=True) requires a pool "
-                    "(repro_torch.pool.default_pool)")
+                    "(construct it through "
+                    "repro_torch.api.HyperOffloadSession, or pass "
+                    "repro_torch.pool.default_pool())")
             pool = default_pool(device=self.device,
                                 transfer_depth=auto_depth(pages=pages))
         elif cfg.kv_offload:

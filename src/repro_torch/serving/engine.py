@@ -122,7 +122,9 @@ class ServeEngine:
         self.offload_kv = offload_kv
         if offload_kv and pool is None:
             raise ValueError("ServeEngine(offload_kv=True) requires a pool "
-                             "(repro_torch.pool.default_pool)")
+                             "(construct it through "
+                             "repro_torch.api.HyperOffloadSession, or pass "
+                             "repro_torch.pool.default_pool())")
         if offload_kv:
             if pool.device != self.device:
                 raise ValueError(f"pool on {pool.device}, parameters on "

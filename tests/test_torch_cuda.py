@@ -9,7 +9,10 @@ that has only PyTorch (``tests/conftest.py`` imports JAX, hence
 Tolerances: attention 2e-2 in bf16 and 2e-5 in fp32 (TF32 off), as
 ``TOL`` in ``tests/test_kernels.py``; the SSD scan (fp32 out) atol 3e-5 and
 rtol 1e-4, as its sweep there; a decode layer after its output projection
-(a sum over 3072 products) 1e-4 in fp32.
+(a sum over 3072 products) 1e-4 in fp32. The KV page codecs (plain
+PyTorch on the card, no kernel) give the CPU's payload bytes and scale on
+the card, and round-trip a bf16 page through a pinned codec tier within
+``roundtrip_bound`` plus the decode's bf16 rounding.
 """
 
 import pytest
@@ -517,3 +520,61 @@ def test_decode_kernel_refuses_inputs_that_require_grad(cuda_device):
     _refuses_grad(
         lambda q, k, v: decode_attention_cuda(q, k, v, pos, scale=0.1),
         (q, k, k.clone()), decode_attention_cuda)
+
+
+# ---------------------------------------------------------------------------
+# KV page codecs on the card (no kernel: plain PyTorch on the device)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["int8", "fp8"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_codec_encode_on_card_equals_cpu(cuda_device, name, dtype):
+    """The encode on the card gives the CPU's payload bytes and scale for a
+    phi3-width page (B=4, 32 tokens, 32 heads, D=96)."""
+    from repro_torch.pool import make_codec
+    g = torch.Generator().manual_seed(3)
+    x = (torch.randn(4, 32, 32, 96, generator=g) * 3).to(dtype)
+    codec = make_codec(name)
+    qc, sc = codec.encode(x)
+    qg, sg = codec.encode(x.to(cuda_device))
+    assert sg.device.type == "cuda" and sg.dim() == 0
+    assert float(sg) == float(sc)
+    assert torch.equal(qg.cpu().view(torch.uint8), qc.view(torch.uint8))
+    y = codec.decode(qg, sg, dtype)
+    assert torch.equal(y.cpu(), codec.decode(qc, sc, dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["int8", "fp8"])
+def test_codec_backend_round_trip_on_the_copy_stream(cuda_device, name):
+    """A page produced on the compute stream, parked in a codec-wrapped
+    pinned host tier and prefetched back through the transfer engine (its
+    copy stream), with no synchronize in between: the page comes back
+    within ``roundtrip_bound``, from a pinned payload buffer that a re-put
+    reuses."""
+    from repro_torch.pool import default_pool, make_codec, roundtrip_bound
+    pool = default_pool(device=cuda_device, codec=name, codec_below="host")
+    g = torch.Generator(device=cuda_device).manual_seed(1)
+    x = torch.randn(4, 32, 32, 96, device=cuda_device, generator=g,
+                    dtype=torch.bfloat16)
+    for _ in range(8):      # queue compute ahead of the put on the stream
+        x = (x * 1.0001).to(torch.bfloat16)
+    pool.put("pg", x, tier="host")
+    h = pool.entries["pg"].handle
+    assert h.payload.is_pinned() and h.scale.device.type == "cuda"
+    assert pool.entries["pg"].nbytes == x.numel() + 4
+    payload = h.payload
+    z = x * 2
+    for page in (x, z):
+        if page is z:
+            pool.put("pg", z, tier="host")
+            assert pool.entries["pg"].handle.payload is payload
+        y = pool.prefetch("pg").wait()
+        absmax = float(page.float().abs().max())
+        # the decode rounds to bf16: half a bf16 ulp of the page's largest
+        # element (at most absmax * 2^-8) on top of the codec's bound
+        bound = roundtrip_bound(make_codec(name), absmax) + absmax * 2.0 ** -8
+        assert float((y.float() - page.float()).abs().max()) <= bound
+    pool.close()

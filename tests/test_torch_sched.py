@@ -218,6 +218,11 @@ MODES = {
     "kv_offload": dict(kv_offload=True),
     # device tier of 1.5 rows: cold sequences' pages spill to the host tier
     "kv_offload-spill": dict(kv_offload=True),
+    # the same, through an int8 / fp8 codec from the host tier down: spilled
+    # pages are quantized, and admission counts the host tier at its
+    # decoded-equivalent capacity
+    "kv_offload-spill-int8": dict(kv_offload=True),
+    "kv_offload-spill-fp8": dict(kv_offload=True),
     "chunk4": dict(chunk_size=4),
     "chunk16": dict(chunk_size=16),
     f"chunk{MAX_SEQ}": dict(chunk_size=MAX_SEQ),
@@ -259,12 +264,14 @@ def _trace(pkg, spec, mode, vocab):
 def _pools(mode, jm, tm):
     if "kv_offload" not in MODES[mode] and not mode.startswith("prefix"):
         return None, None
-    if mode.endswith("spill"):
+    if "spill" in mode:
         row = jax_row_bytes(jm.cache_specs(1, MAX_SEQ, np.float32))
         assert torch_row_bytes(tm.cache_specs(1, MAX_SEQ,
                                               torch.float32)) == row
         host = 2 * row if mode.startswith("prefix") else 4 * row
         caps = dict(device_capacity=int(1.5 * row), host_capacity=host)
+        if mode.endswith(("int8", "fp8")):
+            caps.update(codec=mode.rsplit("-", 1)[1], codec_below="host")
         return (jax_default_pool(transfer=JaxTransferEngine(depth=64),
                                  **caps),
                 torch_default_pool(transfer_depth=64, device="cpu", **caps))
@@ -316,6 +323,7 @@ def test_scheduler_matches_the_reference_step_by_step(pair, mode):
         assert [(ids[r], t) for r, t in te] == je
         assert dataclasses.asdict(ts.stats) == dataclasses.asdict(js.stats)
         assert _det_counts(ts.pool_stats()) == _det_counts(js.pool_stats())
+        assert ts.admission.blocked == js.admission.blocked
         assert ts.slo_snapshot() == js.slo_snapshot()
         assert ts.prefix_stats() == js.prefix_stats()
         assert _statuses(tstates) == _statuses(jstates)
@@ -347,7 +355,7 @@ def test_scheduler_matches_the_reference_step_by_step(pair, mode):
         assert ts.prefetch_stats()["fetches_issued"] > 0
         assert ts.stats.pages_parked > 0
     assert ts.stats.cold_spills == js.stats.cold_spills
-    if mode.endswith("spill"):
+    if "spill" in mode:
         assert ts.stats.cold_spills > 0
     assert _pool_counts(ts.pool_stats()) == _pool_counts(js.pool_stats())
     for name, buckets in HISTOGRAMS.items():
@@ -388,6 +396,54 @@ def test_run_matches_sequential_serving_and_resident(pair):
         sched.close()
         sched.close()   # idempotent
     pool.close()
+
+
+@pytest.mark.parametrize("codec", ["int8", "fp8"])
+def test_offload_with_kv_codec_stays_token_identical(pair, codec):
+    """Quantized KV pages through the scheduler's park/restore path: the
+    mixed trace on a 1.5-row device tier, so pages spill through the codec
+    host tier. The port's tokens and wire bytes equal the JAX scheduler's
+    under the same codec; on phi3 (the reference test's model) the
+    quantization noise flips no greedy token; the spill moves at most half
+    the bytes it moves without the codec (fp32 pages: 1/4 + 4 B)."""
+    jm, jp, tm, tp = pair
+    row = torch_row_bytes(tm.cache_specs(1, MAX_SEQ, torch.float32))
+
+    def run(pkg, model, params, make_pool, name):
+        pool = make_pool(device_capacity=int(1.5 * row),
+                         host_capacity=4 * row, codec=name,
+                         codec_below="host")
+        sched = pkg.ContinuousScheduler(
+            model, params, pkg.SchedulerConfig(max_batch=2, max_seq=MAX_SEQ,
+                                               kv_offload=True), pool=pool)
+        reqs = _mixed_trace(pkg, tm.cfg.vocab_size)
+        raw = sched.run(reqs)
+        out = {r.seed: np.asarray(raw[r.req_id]) for r in reqs}
+        snap = sched.pool_stats()
+        sched.close()
+        pool.close()
+        return out, snap
+
+    tpool = lambda **kw: torch_default_pool(transfer_depth=64,  # noqa: E731
+                                            device="cpu", **kw)
+    jpool = lambda **kw: jax_default_pool(  # noqa: E731
+        transfer=JaxTransferEngine(depth=64), **kw)
+    exact, snap0 = run(tsched, tm, tp, tpool, None)
+    quant, snap1 = run(tsched, tm, tp, tpool, codec)
+    jquant, jsnap = run(jsched, jm, jp, jpool, codec)
+    assert snap1["evictions"] > 0
+    for seed in exact:
+        np.testing.assert_array_equal(quant[seed], jquant[seed])
+        if tm.cfg.name.startswith("phi3"):
+            # the reference's model; gemma2's softcapped logits sit closer
+            # together, and fp8 noise flips one of its greedy tokens in
+            # both packages alike
+            np.testing.assert_array_equal(quant[seed], exact[seed])
+    assert _pool_counts(snap1) == _pool_counts(jsnap)
+    spill0 = snap0["transfer"]["pairs"]["device->host"]["bytes"]
+    spill1 = snap1["transfer"]["pairs"]["device->host"]["bytes"]
+    assert spill1 * 2 <= spill0
+    assert snap1["tier/host"]["backend"] == f"{codec}[host[cpu]]"
 
 
 def test_temperature_sampling_matches_batch1_engine(pair):
