@@ -78,21 +78,40 @@ non-zero exit):
    ``repro_torch.launch.serve.main`` at full width (``kv_offload``,
    ``--recalibrate``: one flash launch per layer per prefill, one ring
    launch per layer per decode step).
-6. paged   — ``PagedKVCache.attend_fused`` (the paged-decode kernel over
+6. train   — phi3-mini-3.8b at full width (full depth unless the host
+   cannot pin its fp32 moments) with bf16 parameters, through
+   ``repro_torch.training``: four steps over the same ``SyntheticTokens``
+   batches (B=2, S=512) from the same seeded parameters in each memory
+   mode: ``none``, ``full`` (recompute each layer), ``offload`` (the
+   tagged activations parked in pinned host memory) and ``offload`` with
+   ``offload_opt_state`` (the AdamW moments in pinned host memory,
+   streamed one (leaf, layer) slice at a time through the update). Per
+   mode: ms per step (host clock around ``cuda.synchronize``), peak device
+   memory, activation and moment bytes moved per step, losses and grad
+   norms, the largest parameter and loss differences from ``none``; the
+   pinned link's GB/s each way. The loss must fall in every mode, every
+   mode agree with ``none`` within a bound derived from bf16 rounding,
+   ``full``'s and ``offload``'s peaks lie below ``none``'s, the moments'
+   offload save at least 90 % of their bytes, and ``offload`` park 3 tags ×
+   layers × B × S × d_model × 2 bytes a step. Then the launcher
+   ``repro_torch.launch.train.main`` at full width (``--remat offload
+   --offload-opt-state``, two steps). The train step runs the plain path
+   (the kernels are forward-only): no kernel may count a launch.
+7. paged   — ``PagedKVCache.attend_fused`` (the paged-decode kernel over
    pool pages) against ``attend`` (the gather path) at phi3's attention
    widths, with every page selected and then top-4 of an 8-page budget.
-7. hybrid  — zamba2-7b (68 Mamba2 and 13 attention layers) at full width
+8. hybrid  — zamba2-7b (68 Mamba2 and 13 attention layers) at full width
    and depth, as in phase 3: every prefill launches the SSD kernel once per
    Mamba2 layer (each launch the tensor-core instance) and flash once per
    attention layer, every decode step the
    ring kernel once per attention layer; the ``offload_kv`` round trip
    carries the conv, SSM-state (fp32) and K/V leaves. The prefill logits
    are checked on three prompts, the bf16 rule by RMS error.
-8. ring    — ``ops.decode_attention`` (the ring-decode kernel) over the
+9. ring    — ``ops.decode_attention`` (the ring-decode kernel) over the
    caches that zamba2's ``attention_decode`` on the plain path has just
    written, held against that function's output, layer by layer for a few
    steps.
-9. ssm     — mamba2-370m (48 Mamba2 layers) at full width and depth:
+10. ssm    — mamba2-370m (48 Mamba2 layers) at full width and depth:
    ``Model.forward`` at B=4, S=2048 in bf16, one SSD launch per layer (each
    the tensor-core instance), logits held against the plain path as in
    phase 3.
@@ -100,8 +119,8 @@ non-zero exit):
 Output: the card's name and power limit, one line per phase, the total
 wall time, a JSON line ``{"kernels": [...]}`` and, last, ``{"ok": true,
 "device": {...}}``. The
-launch counts in the kernels line are the sums over phases 3 to 9 of each
-phase's own count: every count is set to 0 just before a phase drives the
+launch counts in the kernels line are the sums over phases 3 to 10 of each
+phase's own count (the train phase's are 0): every count is set to 0 just before a phase drives the
 port and read just after. Without a CUDA device, or without the port
 beside this file, it prints no result and exits with 2.
 """
@@ -109,7 +128,9 @@ beside this file, it prints no result and exits with 2.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
+import math
 import re
 import subprocess
 import sys
@@ -158,6 +179,17 @@ PREFIX_TRACE = dict(n_requests=12, rate=0.5, prompt_lens=(64, 256),
                     prompt_quantum=32, new_tokens=(16, 64),
                     n_prefix_families=2, prefix_len=256, seed=0)
 PREFIX_PAGE = 32
+
+# the train phase: phi3-mini at full width in bf16 (fp32 moments), four
+# memory modes from the same initial parameters over the same batches, at
+# a learning rate with which four steps visibly fit the batch they repeat
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 2, 512, 4
+TRAIN_HP = dict(peak_lr=1e-4, warmup=1)
+TRAIN_MODES = (("none", False), ("full", False), ("offload", False),
+               ("offload", True))
+TRAIN_TAGS = 3          # resid, attn_out, mlp_out: parked per layer
+TRAIN_LAUNCH_ARGV = ["--arch", ARCH, "--steps", "2", "--remat", "offload",
+                     "--offload-opt-state"]
 
 FLASH = {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -218,6 +250,7 @@ def main() -> int:
                   runs["kv_offload-spill"])
     del model, params, runs
     torch.cuda.empty_cache()
+    phase_train(torch, dev)
     phase_paged(torch, dev, kernels)
     phase_hybrid(torch, dev, kernels)
     phase_ssm(torch, dev, kernels)
@@ -2120,7 +2153,233 @@ def session_launcher(torch, dev, kernels, n_attn) -> None:
 
 
 # ---------------------------------------------------------------------------
-# 6. paged: fused decode over pool pages
+# 6. train: activation offload and optimizer-state offload
+# ---------------------------------------------------------------------------
+
+
+def host_available_bytes() -> int:
+    with open("/proc/meminfo") as f:
+        for line in f:
+            if line.startswith("MemAvailable:"):
+                return int(line.split()[1]) * 1024
+    raise RuntimeError("no MemAvailable in /proc/meminfo")
+
+
+def train_config(torch, cfg):
+    """phi3 at full width; its full depth unless the host cannot pin the
+    fp32 moments (with a fifth to spare for everything else), then as many
+    layers as it can."""
+    from repro_torch.models import transformer as tfm
+    meta = tfm.init_params(cfg, None, torch.bfloat16, torch.device("meta"))
+    n_layers = sum(s.repeats * len(s.pattern) for s in cfg.segments)
+    total = sum(x.numel() for x in _leaves(meta))
+    stacked = sum(x.numel() for x in _leaves(meta["segments"]))
+    avail = host_available_bytes()
+    # fp32 mu and nu: 8 bytes a parameter
+    fit = int((avail / 1.25 / 8 - (total - stacked)) * n_layers // stacked)
+    layers = min(n_layers, fit)
+    log("train", host_available_gb=f"{avail / 1e9:.2f}",
+        moments_gb_full_depth=f"{8 * total / 1e9:.2f}", layers=layers,
+        cut=layers < n_layers)
+    assert layers >= 4, "the host cannot pin the moments of 4 layers"
+    if layers == n_layers:
+        return cfg
+    seg, = cfg.segments
+    return dataclasses.replace(cfg, segments=(
+        dataclasses.replace(seg, repeats=layers),))
+
+
+def link_rates(torch, dev, nbytes: int = 1 << 30):
+    """Device↔host GB/s of a pinned copy of ``nbytes``, each way alone and
+    both at once (two streams), by CUDA events."""
+    host = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+    host2 = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+    devbuf = torch.empty(nbytes, dtype=torch.uint8, device=dev)
+    devbuf2 = torch.empty(nbytes, dtype=torch.uint8, device=dev)
+    s1, s2 = torch.cuda.Stream(dev), torch.cuda.Stream(dev)
+
+    def timed_copy(pairs):
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        start.record()
+        ends = []
+        for stream, (dst, src) in zip((s1, s2), pairs):
+            stream.wait_event(start)
+            with torch.cuda.stream(stream):
+                dst.copy_(src, non_blocking=True)
+                end = torch.cuda.Event(enable_timing=True)
+                end.record(stream)
+            ends.append(end)
+        torch.cuda.synchronize()
+        return max(start.elapsed_time(e) for e in ends) / 1e3
+
+    h2d = nbytes / timed_copy([(devbuf, host)]) / 1e9
+    d2h = nbytes / timed_copy([(host, devbuf)]) / 1e9
+    both = 2 * nbytes / timed_copy([(devbuf, host), (host2, devbuf2)]) / 1e9
+    return h2d, d2h, both
+
+
+def phase_train(torch, dev) -> None:
+    """phi3-mini at full width, bf16 parameters and fp32 moments, four
+    steps in each memory mode from the same initial parameters over the
+    same ``SyntheticTokens`` batches; then the training launcher. The
+    train step runs the plain path (the kernels are forward-only): no
+    kernel may count a launch here."""
+    from repro_torch.configs import REGISTRY
+    from repro_torch.data import SyntheticTokens
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as launcher
+    from repro_torch.models.model import build_model
+    from repro_torch.optim.adamw import tree_items
+    from repro_torch.training import (
+        TrainStepConfig, init_train_state, make_train_step,
+    )
+
+    # what earlier phases left behind (a closed session whose registry
+    # still refers to it keeps its engines alive until a collection) must
+    # not sit under this phase's peaks
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("train", allocated_at_start_gb=f"{torch.cuda.memory_allocated() / 1e9:.3f}")
+    cfg = train_config(torch, REGISTRY[ARCH])
+    model = build_model(cfg)
+    layers = sum(s.repeats * len(s.pattern) for s in cfg.segments)
+    # every step fits the same batch: at random initialisation the loss
+    # differs more between two fresh batches than four steps of AdamW move
+    # it, so only a batch seen again shows the loss fall
+    batch = SyntheticTokens(cfg.vocab_size, seq_len=TRAIN_SEQ,
+                            global_batch=TRAIN_BATCH, seed=0).batch(
+                                0, device=dev)
+    batches = [batch] * TRAIN_STEPS
+    h2d, d2h, both = link_rates(torch, dev)
+    log("train", link_h2d_gbps=f"{h2d:.2f}", link_d2h_gbps=f"{d2h:.2f}",
+        link_both_ways_gbps=f"{both:.2f}")
+    act_per_step = TRAIN_TAGS * layers * TRAIN_BATCH * TRAIN_SEQ \
+        * cfg.d_model * 2
+    results = {}
+    ref_params = None
+    ops.reset_launch_counts()
+    for remat, opt in TRAIN_MODES:
+        label = remat + ("+opt" if opt else "")
+        ts = TrainStepConfig(remat=remat, offload_opt_state=opt, **TRAIN_HP)
+        t0 = time.perf_counter()
+        params, state = init_train_state(
+            model, torch.Generator(device=dev).manual_seed(0),
+            torch.bfloat16, ts, dev)
+        step = make_train_step(model, ts)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        n_params = sum(x.numel() for _, x in tree_items(params))
+        moment_bytes = 2 * 4 * n_params
+        torch.cuda.reset_peak_memory_stats()
+        ms, losses, gns = [], [], []
+        for b in batches:
+            (params, state, m), dt = synced_s(
+                torch, lambda b=b: step(params, state, b))
+            ms.append(dt * 1e3)
+            losses.append(float(m["loss"]))
+            gns.append(float(m["grad_norm"]))
+        peak = torch.cuda.max_memory_allocated()
+        acts, moments = step.counts["activations"], step.counts["moments"]
+        act_parked = acts.bytes_parked // TRAIN_STEPS if acts else 0
+        act_fetched = acts.bytes_fetched // TRAIN_STEPS if acts else 0
+        mom_parked = moments.bytes_parked // TRAIN_STEPS if moments else 0
+        steady = sorted(ms[1:])[len(ms[1:]) // 2]
+        fields = dict(
+            mode=label, layers=layers, params=n_params,
+            init_s=f"{init_s:.2f}",
+            ms_per_step=json.dumps([round(x, 2) for x in ms]),
+            ms_per_step_median_2_4=f"{steady:.2f}",
+            peak_gb=f"{peak / 1e9:.3f}",
+            act_bytes_parked_per_step=act_parked,
+            act_bytes_fetched_per_step=act_fetched,
+            moment_bytes_each_way_per_step=mom_parked,
+            losses=json.dumps([round(x, 5) for x in losses]),
+            grad_norms=json.dumps([round(x, 4) for x in gns]))
+        if opt:
+            fields["moment_stream_gbps"] = f"{2 * mom_parked / steady / 1e6:.2f}"
+        if ref_params is None:
+            ref_params = [x.to("cpu") for _, x in tree_items(params)]
+            dp = 0.0
+        else:
+            dp = max_param_diff(torch, ref_params, params)
+        if results:
+            dl = max(abs(a - b) for a, b in zip(results["none"]["losses"],
+                                                losses))
+            fields.update(max_dparam=f"{dp:.3e}", max_dloss=f"{dl:.3e}")
+        log("train", **fields)
+        results[label] = dict(losses=losses, peak=peak, dp=dp,
+                              act=act_parked, mom=mom_parked,
+                              moment_bytes=moment_bytes)
+        assert all(map(math.isfinite, losses)), losses
+        assert losses[-1] < losses[0], (label, losses)
+        if remat == "offload":
+            assert act_parked == act_per_step, (act_parked, act_per_step)
+        if opt:
+            assert mom_parked == moment_bytes, (mom_parked, moment_bytes)
+        # one more step under the profiler: device busy time, idle share
+        # (of a wall time the profiler itself lengthens) and top kernels
+        (busy, top), wall = synced_s(torch, lambda: device_busy_ms(
+            torch, lambda: step(params, state, batches[0])))
+        log("train", mode=label, profiled_step_ms=f"{wall * 1e3:.2f}",
+            device_busy_ms=f"{busy:.2f}",
+            idle_share=f"{max(0.0, 1 - busy / (wall * 1e3)):.3f}",
+            top_kernels=json.dumps(top))
+        del params, state, step
+        torch.cuda.empty_cache()
+    counts = ops.launch_counts()
+    log("train", launches=json.dumps(counts))
+    assert not any(counts.values()), counts
+    # agreement with none: the modes run the same arithmetic; the bound
+    # allows a bf16 rounding of every parameter (2^-8 of the largest
+    # magnitude, which TRAIN_HP keeps below 1) and a sign-like AdamW step
+    # of +-lr taken differently at every step
+    p_tol = 2.0 ** -8 + 2 * TRAIN_STEPS * TRAIN_HP["peak_lr"]
+    l_tol = 2.0 ** -8 * max(results["none"]["losses"])
+    for label, r in results.items():
+        dl = max(abs(a - b) for a, b in zip(results["none"]["losses"],
+                                            r["losses"]))
+        assert r["dp"] <= p_tol and dl <= l_tol, (label, r["dp"], dl)
+    none, full = results["none"], results["full"]
+    off, opt = results["offload"], results["offload+opt"]
+    assert full["peak"] < none["peak"] and off["peak"] < none["peak"]
+    assert off["peak"] - opt["peak"] >= 0.9 * opt["moment_bytes"], \
+        (off["peak"], opt["peak"], opt["moment_bytes"])
+    log("train", tol_dparam=f"{p_tol:.3e}", tol_dloss=f"{l_tol:.3e}",
+        moments_saved_gb=f"{(off['peak'] - opt['peak']) / 1e9:.3f}",
+        moments_gb=f"{opt['moment_bytes'] / 1e9:.3f}")
+    del ref_params
+    # the launcher, in process, at full width (fp32, its default)
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    argv = TRAIN_LAUNCH_ARGV
+    if layers < sum(s.repeats * len(s.pattern)
+                    for s in REGISTRY[ARCH].segments):
+        argv = argv + ["--dtype", "bfloat16"]
+    rc, wall = synced_s(torch, lambda: launcher.main(argv))
+    counts = ops.launch_counts()
+    log("train", launcher=" ".join(argv), rc=rc, wall_s=f"{wall:.3f}",
+        launches=json.dumps(counts),
+        max_allocated_gb=f"{torch.cuda.max_memory_allocated() / 1e9:.2f}")
+    assert rc == 0 and not any(counts.values()), counts
+    torch.cuda.empty_cache()
+
+
+def max_param_diff(torch, ref, params) -> float:
+    """Largest |Δ| between two parameter trees, one (leaf, layer) slice at
+    a time on the card."""
+    from repro_torch.optim.adamw import tree_items
+    worst = 0.0
+    for r, (_, p) in zip(ref, tree_items(params)):
+        for rs, ps in zip(r.unbind(0) if r.dim() > 2 else [r],
+                          p.unbind(0) if p.dim() > 2 else [p]):
+            d = (rs.to(p.device).float() - ps.float()).abs().max().item()
+            worst = max(worst, d)
+    return worst
+
+
+# ---------------------------------------------------------------------------
+# 7. paged: fused decode over pool pages
 # ---------------------------------------------------------------------------
 
 
@@ -2185,7 +2444,7 @@ def phase_paged(torch, dev, kernels) -> None:
 
 
 # ---------------------------------------------------------------------------
-# 7. hybrid: zamba2-7b, resident and offload_kv; 8. ring decode on its caches
+# 8. hybrid: zamba2-7b, resident and offload_kv; 9. ring decode on its caches
 # ---------------------------------------------------------------------------
 
 
@@ -2253,7 +2512,7 @@ def phase_ring(torch, dev, kernels, model, params, tokens) -> None:
 
 
 # ---------------------------------------------------------------------------
-# 9. ssm: mamba2-370m forward
+# 10. ssm: mamba2-370m forward
 # ---------------------------------------------------------------------------
 
 

@@ -34,10 +34,20 @@ pages live in the session pool under the same tiering/eviction ledger as
 everything else.
 
 The session's pool is on ``device`` (CUDA unless the caller asks for the
-CPU); models served through it must have their parameters there. The
-training methods of the reference's session (``train_config``,
-``train_step``, ``init_train_state``) belong to the port's training slice
-and are not here yet.
+CPU); models served through it must have their parameters there.
+
+Training goes through the same door: ``train_config`` builds a
+`TrainStepConfig` whose memory policy (``remat``, ``offload_opt_state``,
+``host_memory_kind``) comes from the session config, ``train_step`` and
+``init_train_state`` build the step and the state under it, on the
+session's device:
+
+    with HyperOffloadSession(OffloadConfig(remat="offload",
+                                           offload_opt_state=True)) as s:
+        ts = s.train_config(peak_lr=1e-3, warmup=10)
+        params, opt = s.init_train_state(model, ts=ts)
+        step = s.train_step(model, ts)
+        params, opt, metrics = step(params, opt, batch)
 """
 
 from __future__ import annotations
@@ -62,6 +72,8 @@ from repro_torch.pool import DEVICE_TIER, MemoryPoolManager, default_pool
 from repro_torch.prefix import PrefixCacheManager
 from repro_torch.sched.scheduler import ContinuousScheduler, SchedulerConfig
 from repro_torch.serving.engine import ServeEngine
+from repro_torch.training.step import TrainStepConfig, make_train_step
+from repro_torch.training.step import init_train_state as _init_train_state
 
 
 def _weighted_plan_lead(pairs: List[tuple]) -> float:
@@ -369,6 +381,39 @@ class HyperOffloadSession:
         """A sync `PlanExecutor` running against the session pool (on its
         device)."""
         return PlanExecutor(graph, compute_fns, pool=self.pool)
+
+    # -- training -------------------------------------------------------
+    def train_config(self, **overrides) -> TrainStepConfig:
+        """`TrainStepConfig` with the memory policy (remat mode, optimizer
+        -state offload, host memory kind) taken from the session config;
+        ``overrides`` set the optimization hyperparameters."""
+        base: Dict[str, Any] = dict(
+            remat=self.config.remat,
+            offload_opt_state=self.config.offload_opt_state,
+            host_kind=self.config.host_memory_kind)
+        base.update(overrides)
+        return TrainStepConfig(**base)
+
+    def train_step(self, model, ts: Optional[TrainStepConfig] = None, *,
+                   jit: bool = True, **overrides) -> Callable:
+        """``make_train_step`` under the session's memory policy (``jit``
+        is accepted for the reference's signature and does nothing)."""
+        if ts is not None and overrides:
+            raise TypeError("pass either ts or field overrides, not both")
+        return make_train_step(model, ts or self.train_config(**overrides),
+                               jit=jit)
+
+    def init_train_state(self, model,
+                         generator: Optional[torch.Generator] = None,
+                         dtype: torch.dtype = torch.float32,
+                         ts: Optional[TrainStepConfig] = None, **overrides):
+        """Parameters and AdamW state on the session's device (the moments
+        in host memory under ``offload_opt_state``)."""
+        if ts is not None and overrides:
+            raise TypeError("pass either ts or field overrides, not both")
+        return _init_train_state(model, generator, dtype,
+                                 ts=ts or self.train_config(**overrides),
+                                 device=self.pool.device)
 
     # -- observability --------------------------------------------------
     def stats(self) -> Dict[str, Any]:

@@ -1,0 +1,6 @@
+"""``.npz`` checkpoints that either package loads (the counterpart of
+``repro.checkpoint``)."""
+
+from repro_torch.checkpoint.ckpt import load_checkpoint, save_checkpoint
+
+__all__ = ["load_checkpoint", "save_checkpoint"]

@@ -1,10 +1,12 @@
-"""Load parameters made by the JAX package into the port.
+"""Load parameters and optimizer state made by the JAX package into the
+port.
 
 The port keeps the reference's stacked per-segment layout, so conversion is
 a copy leaf by leaf: ``params_from_numpy(jax.tree.map(np.asarray, params),
-device)`` gives parameters the port's model runs as they are. This module
-imports neither JAX nor the JAX package; the caller turns JAX arrays into
-numpy arrays first.
+device)`` gives parameters the port's model runs as they are, and
+``opt_state_from_numpy`` an ``AdamWState`` the port's train step continues
+from. This module imports neither JAX nor the JAX package; the caller turns
+JAX arrays into numpy arrays first.
 """
 
 from __future__ import annotations
@@ -50,3 +52,16 @@ def params_from_numpy(tree: Any, device: DeviceLike = None,
         return tensor_from_numpy(node, dev, dtype)
 
     return conv(tree)
+
+
+def opt_state_from_numpy(step: Any, mu: Any, nu: Any,
+                         device: DeviceLike = None):
+    """A JAX ``AdamWState``'s fields as numpy (the step counter and the two
+    fp32 moment trees) → the port's ``AdamWState``: the step on the CPU,
+    the moments on ``device`` (move them to the host with
+    ``offload.optstate.host_offload_state`` for optimizer-state offload)."""
+    from repro_torch.optim.adamw import AdamWState
+    return AdamWState(step=torch.tensor(int(np.asarray(step)),
+                                        dtype=torch.int32),
+                      mu=params_from_numpy(mu, device),
+                      nu=params_from_numpy(nu, device))

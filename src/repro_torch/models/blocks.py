@@ -12,6 +12,7 @@ import torch
 from repro_torch.configs.base import LayerSpec, ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import mlp as mlp_mod
+from repro_torch.models import remat
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.common import apply_norm, norm_params
 
@@ -85,16 +86,23 @@ def init_layer_cache(cfg: ModelConfig, spec: LayerSpec, batch: int,
 # ---------------------------------------------------------------------------
 
 
-def _ffn(cfg: ModelConfig, spec: LayerSpec, p: Dict,
-         x: torch.Tensor) -> torch.Tensor:
-    if spec.ffn == "none":
-        return x
+def _ffn_out(cfg: ModelConfig, spec: LayerSpec, p: Dict,
+             x: torch.Tensor) -> torch.Tensor:
+    """The FFN sublayer's output (after its post-norm), before the
+    residual add."""
     h = apply_norm(cfg, p["ffn_norm"], x)
     h = mlp_mod.gelu_mlp(p["ffn"], h) if spec.ffn == "gelu" \
         else mlp_mod.swiglu(p["ffn"], h)
     if spec.post_norms:
         h = apply_norm(cfg, p["post_ffn_norm"], h)
-    return x + h
+    return h
+
+
+def _ffn(cfg: ModelConfig, spec: LayerSpec, p: Dict,
+         x: torch.Tensor) -> torch.Tensor:
+    if spec.ffn == "none":
+        return x
+    return x + _ffn_out(cfg, spec, p, x)
 
 
 def _post_mixer(cfg: ModelConfig, spec: LayerSpec, p: Dict, x: torch.Tensor,
@@ -108,15 +116,31 @@ def apply_layer(cfg: ModelConfig, spec: LayerSpec, p: Dict, x: torch.Tensor,
                 positions: torch.Tensor, *, causal: bool = True,
                 swa_override: Optional[int] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Forward without a cache. Returns (x, aux_loss)."""
-    h = apply_norm(cfg, p["pre_norm"], x)
-    if spec.mixer == "mamba2":
-        h = ssm_mod.mamba_forward(cfg, p["mixer"], h)
-    else:
-        h = attn.attention_full(cfg, spec, p["mixer"], h, positions,
-                                causal=causal, swa_override=swa_override)
+    """Forward without a cache. Returns (x, aux_loss). The mixer's output,
+    the FFN's and the layer's are the tag points ``attn_out``, ``mlp_out``
+    and ``resid`` (``models.remat``), as in the reference."""
+
+    def mixer(p: Dict, x: torch.Tensor) -> torch.Tensor:
+        h = apply_norm(cfg, p["pre_norm"], x)
+        if spec.mixer == "mamba2":
+            h = ssm_mod.mamba_forward(cfg, p["mixer"], h)
+        else:
+            h = attn.attention_full(cfg, spec, p["mixer"], h, positions,
+                                    causal=causal, swa_override=swa_override)
+        if spec.post_norms:
+            h = apply_norm(cfg, p["post_norm"], h)
+        return h
+
+    def ffn(p: Dict, x: torch.Tensor,
+            h: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        x = x + h
+        return x, _ffn_out(cfg, spec, p, x)
+
+    h = remat.sublayer("attn_out", mixer, p, x)
+    if spec.ffn != "none":
+        x, h = remat.sublayer("mlp_out", ffn, p, x, h)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    return _post_mixer(cfg, spec, p, x, h), aux
+    return remat.tag(x + h, "resid"), aux
 
 
 def apply_layer_prefill(cfg: ModelConfig, spec: LayerSpec, p: Dict,

@@ -39,9 +39,18 @@ def embed_init(shape: Sequence[int], dtype: torch.dtype, device: torch.device,
 # ---------------------------------------------------------------------------
 
 
+def _f32(x: torch.Tensor) -> torch.Tensor:
+    """``x`` in fp32, always a new tensor: a norm then differentiates into
+    its input through one node, so the gradient a layer's input gathers
+    from its sublayers sums the same way whether the sublayers are
+    differentiated together or one recomputed stage at a time
+    (``offload.policies``)."""
+    return x.to(torch.float32, copy=True)
+
+
 def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
     dtype = x.dtype
-    x = x.float()
+    x = _f32(x)
     var = torch.mean(torch.square(x), dim=-1, keepdim=True)
     y = x * torch.rsqrt(var + eps)
     # gemma-style (1 + scale) parameterisation keeps zero-init neutral
@@ -51,7 +60,7 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
 def layernorm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
               eps: float) -> torch.Tensor:
     dtype = x.dtype
-    x = x.float()
+    x = _f32(x)
     mu = torch.mean(x, dim=-1, keepdim=True)
     var = torch.mean(torch.square(x - mu), dim=-1, keepdim=True)
     y = (x - mu) * torch.rsqrt(var + eps)

@@ -1,6 +1,6 @@
 """Public model facade: build once from a ``ModelConfig``, then call
-``init`` / ``forward`` / ``prefill`` / ``prefill_chunk`` / ``decode_step``,
-or ask ``cache_specs`` for a cache's shapes and types."""
+``init`` / ``loss`` / ``forward`` / ``prefill`` / ``prefill_chunk`` /
+``decode_step``, or ask ``cache_specs`` for a cache's shapes and types."""
 
 from __future__ import annotations
 
@@ -12,6 +12,13 @@ import torch
 from repro_torch.configs.base import InputShape, ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import transformer as tfm
+
+
+def _xent(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """Mean cross-entropy in fp32. logits (B,S,V), targets (B,S) int."""
+    logz = torch.log_softmax(logits.float(), dim=-1)
+    ll = torch.gather(logz, -1, targets.long()[..., None])[..., 0]
+    return -torch.mean(ll)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -36,10 +43,20 @@ class Model:
                               resolve_device(device),
                               swa_override=self.swa_override)
 
-    def forward(self, params: Dict, batch: Dict) -> Tuple[torch.Tensor, torch.Tensor]:
+    # -- training -----------------------------------------------------------
+    def forward(self, params: Dict, batch: Dict, remat_policy=None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
         return tfm.forward(self.cfg, params, batch["tokens"],
                            positions=batch.get("positions"),
-                           swa_override=self.swa_override)
+                           swa_override=self.swa_override,
+                           remat_policy=remat_policy)
+
+    def loss(self, params: Dict, batch: Dict,
+             remat_policy=None) -> torch.Tensor:
+        logits, aux = self.forward(params, batch, remat_policy=remat_policy)
+        return _xent(logits, batch["targets"]) + aux
+
+    # -- inference ----------------------------------------------------------
 
     def prefill(self, params: Dict, batch: Dict,
                 cache: Dict) -> Tuple[torch.Tensor, Dict]:

@@ -11,13 +11,14 @@ stacked tensors, so KV caches (same stacked layout) are written in place.
 
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, Optional, Tuple
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
-from repro_torch.models import blocks
+from repro_torch.models import blocks, remat
 from repro_torch.models.common import apply_norm, embed_init, norm_params, softcap
 
 
@@ -105,21 +106,30 @@ def _default_positions(tokens: torch.Tensor) -> torch.Tensor:
 
 def forward(cfg: ModelConfig, params: Dict, tokens: torch.Tensor, *,
             positions: Optional[torch.Tensor] = None,
-            swa_override: Optional[int] = None
-            ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Full-sequence forward. Returns (logits, aux_loss)."""
+            swa_override: Optional[int] = None,
+            remat_policy=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Full-sequence forward. Returns (logits, aux_loss).
+
+    With a ``remat_policy`` (``repro_torch.offload.policies``) each repeat
+    of a segment's layer pattern runs through the policy, as the reference
+    wraps each repeat in ``jax.checkpoint(pattern_body, policy=...)``. A
+    stacked leaf may also come as a list of per-layer tensors (the train
+    step's gradient leaves)."""
     if positions is None:
         positions = _default_positions(tokens)
     x = embed_tokens(cfg, params, tokens)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    run = remat_policy.bind() if remat_policy is not None else None
     for seg, seg_params in zip(cfg.segments, params["segments"]):
         for r in range(seg.repeats):
             layer = _index(seg_params, r)
-            for i, spec in enumerate(seg.pattern):
-                x, a = blocks.apply_layer(cfg, spec, layer[f"p{i}"], x,
-                                          positions,
-                                          swa_override=swa_override)
-                aux = aux + a
+            layers = [functools.partial(
+                blocks.apply_layer, cfg, spec, layer[f"p{i}"],
+                positions=positions, swa_override=swa_override)
+                for i, spec in enumerate(seg.pattern)]
+            x, a = remat.run_layers(layers, x) if run is None \
+                else run(layers, x)
+            aux = aux + a
     return final_logits(cfg, params, x), aux
 
 

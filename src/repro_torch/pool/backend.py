@@ -48,6 +48,35 @@ def tensor_nbytes(t: torch.Tensor) -> int:
     return t.numel() * t.element_size()
 
 
+#: host memory kinds a caller may name (the reference's spellings); None
+#: lets the device decide
+HOST_KINDS = (None, "pinned_host", "unpinned_host")
+
+
+def pinned_host(device: torch.device, kind: Optional[str] = None) -> bool:
+    """Whether host copies of ``device`` tensors are pinned: always on
+    CUDA, where pageable memory would make every copy synchronous (so
+    ``"unpinned_host"`` is refused there), never on the CPU."""
+    if kind not in HOST_KINDS:
+        raise ValueError(f"unknown host memory kind {kind!r}; "
+                         f"have {HOST_KINDS}")
+    if device.type != "cuda":
+        return False
+    if kind == "unpinned_host":
+        raise ValueError("host memory on CUDA is pinned; 'unpinned_host' "
+                         "is not offered")
+    return True
+
+
+def is_host_resident(x: Any, device: Optional[torch.device] = None) -> bool:
+    """True if ``x`` lives in the host tier of a pool on ``device``
+    (default CUDA): a CPU tensor, and a pinned one when the device is
+    CUDA."""
+    dev = torch.device("cuda" if device is None else device)
+    return (isinstance(x, torch.Tensor) and x.device.type == "cpu"
+            and (dev.type != "cuda" or x.is_pinned()))
+
+
 def _reusable(buf: Optional[torch.Tensor], value: torch.Tensor,
               device: torch.device) -> bool:
     return (isinstance(buf, torch.Tensor) and buf.shape == value.shape

@@ -235,22 +235,25 @@ class MemoryPoolManager:
 
     def prefetch(self, key: str) -> TransferHandle:
         """Issue an async device fetch through the transfer engine; the
-        returned handle's ``wait()`` yields the device tensor."""
+        returned handle's ``wait()`` yields the device tensor.
+
+        The fetch is counted here, on the caller's thread, with the bytes
+        of the tier it reads from: a worker that ran the bookkeeping would
+        let an eviction racing it change ``bytes_fetched`` (the entry's
+        bytes after the spill) and the LRU clock (which victim the next
+        eviction picks)."""
         with self._lock:
             entry = self.entries[key]   # fail fast on unknown keys
             backend, handle = self._tier(entry.tier).backend, entry.handle
-            src = entry.tier
+            src, nbytes = entry.tier, entry.nbytes
+            self._clock += 1
+            entry.last_use = self._clock
+            self.stats.gets += 1
+            self.stats.bytes_fetched += nbytes
 
-        def fetch():
-            with self._lock:
-                self._clock += 1
-                entry.last_use = self._clock
-                self.stats.gets += 1
-                self.stats.bytes_fetched += entry.nbytes
-            return backend.get(handle)
-
-        h = self.transfer.submit(fetch, key=key, src=src, dst=B.DEVICE_TIER,
-                                 nbytes=entry.nbytes, device=self.device)
+        h = self.transfer.submit(lambda: backend.get(handle), key=key,
+                                 src=src, dst=B.DEVICE_TIER, nbytes=nbytes,
+                                 device=self.device)
         with self._lock:
             entry.pending = [p for p in entry.pending
                              if not p._future.done()] + [h]

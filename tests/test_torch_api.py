@@ -510,10 +510,17 @@ def _mixed_trace(pkg, vocab):
 #: stats() fields that depend on the host clock or the framework
 _TIMING = ("blocked_s", "backpressure_s", "waits_overlapped",
            "waits_blocked", "backpressure_waits", "max_in_flight")
+#: pool fields that depend on thread timing in the reference: its transfer
+#: worker counts a fetch's bytes when the worker runs, so on a loaded
+#: machine a spill that lands between a fetch's issue and its run shrinks
+#: the count (the port counts each fetch when it is issued)
+_POOL_TIMING = ("bytes_fetched",)
 
 
 def _comparable(stats):
     out = json.loads(json.dumps(stats))
+    for k in _POOL_TIMING:
+        out["pool"].pop(k)
     tr = out["pool"]["transfer"]
     for k in _TIMING:
         tr.pop(k)

@@ -578,3 +578,121 @@ def test_codec_backend_round_trip_on_the_copy_stream(cuda_device, name):
         bound = roundtrip_bound(make_codec(name), absmax) + absmax * 2.0 ** -8
         assert float((y.float() - page.float()).abs().max()) <= bound
     pool.close()
+
+
+# ---------------------------------------------------------------------------
+# training: no kernel lies on the path; the offload machinery does
+# ---------------------------------------------------------------------------
+
+
+def _train_model(cuda_device, dtype):
+    import dataclasses
+    from repro_torch.models.model import build_model
+    cfg = REGISTRY["phi3-mini-3.8b"].reduced()
+    cfg = dataclasses.replace(cfg, segments=tuple(
+        dataclasses.replace(s, repeats=2) for s in cfg.segments))
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device=cuda_device).manual_seed(0),
+                        dtype, cuda_device)
+    toks = torch.randint(0, cfg.vocab_size, (2, 65), device=cuda_device,
+                         generator=torch.Generator(
+                             device=cuda_device).manual_seed(1))
+    batch = {"tokens": toks[:, :-1].int(), "targets": toks[:, 1:].int()}
+    return model, params, batch
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_streamed_moment_update_equals_the_resident_update(cuda_device,
+                                                           dtype):
+    """Three AdamW steps with the moments on the device, and with them in
+    pinned host memory streamed one (leaf, layer) slice at a time: the
+    parameters and the moments are equal bit for bit."""
+    from repro_torch.offload import optstate
+    from repro_torch.optim import adamw_init, adamw_update
+    from repro_torch.optim.adamw import tree_items, tree_map
+    _, params, _ = _train_model(cuda_device, dtype)
+    gen = torch.Generator(device=cuda_device).manual_seed(2)
+    grads = [tree_map(lambda p: torch.randn(p.shape, generator=gen,
+                                            device=cuda_device).to(p.dtype),
+                      params) for _ in range(3)]
+    runs = []
+    for streamed in (False, True):
+        p = tree_map(torch.clone, params)
+        st = adamw_init(p)
+        counts = optstate.MomentCounts()
+        if streamed:
+            st = st._replace(mu=optstate.host_offload_state(st.mu),
+                             nu=optstate.host_offload_state(st.nu))
+            assert all(m.is_pinned() for _, m in tree_items((st.mu, st.nu)))
+        for g in grads:
+            p, st, _ = adamw_update(
+                g, st, p, 1e-3,
+                stream=(lambda w, c, h: optstate.streamed_update(w, c, h,
+                                                                 counts))
+                if streamed else None)
+        torch.cuda.synchronize()
+        runs.append((p, st, counts))
+    (p0, s0, _), (p1, s1, counts) = runs
+    assert all(torch.equal(a, b) for (_, a), (_, b)
+               in zip(tree_items(p0), tree_items(p1)))
+    assert all(torch.equal(a, b.to(cuda_device)) for (_, a), (_, b)
+               in zip(tree_items((s0.mu, s0.nu)), tree_items((s1.mu, s1.nu))))
+    n = sum(x.numel() for _, x in tree_items(params))
+    assert counts.bytes_fetched == counts.bytes_parked == 3 * 2 * 4 * n
+
+
+@pytest.mark.cuda
+def test_offload_remat_parks_pinned_and_equals_none(cuda_device):
+    """The offload policy on the card: every parked activation sits in
+    pinned host memory, the backward fetches them back, and the gradients
+    equal those of keeping every activation, bit for bit."""
+    from repro_torch.offload import policies
+    from repro_torch.optim.adamw import tree_items, tree_map
+    model, params, batch = _train_model(cuda_device, torch.bfloat16)
+    pinned = []
+    park = policies._OffloadScope.park
+
+    def spy(self, x):
+        parked = park(self, x)
+        pinned.append(parked.host.is_pinned())
+        return parked
+
+    policies._OffloadScope.park = spy
+    try:
+        grads = []
+        policy = policies.offload_remat_policy(policies.OFFLOADABLE_NAMES)
+        for pol in (None, policy):
+            p = tree_map(lambda x: x.detach().clone().requires_grad_(True),
+                         params)
+            with use_attention_impl("plain"):
+                model.loss(p, batch, remat_policy=pol).backward()
+            grads.append([x.grad for _, x in tree_items(p)])
+    finally:
+        policies._OffloadScope.park = park
+    assert pinned and all(pinned)
+    assert policy.counts.parked == 3 * 2
+    assert policy.counts.bytes_fetched > 0
+    assert all(torch.equal(a, b) for a, b in zip(*grads))
+
+
+@pytest.mark.cuda
+def test_train_step_on_card_launches_no_kernel(cuda_device):
+    """The train step runs the plain path on the card (the kernels are
+    forward-only): its loss falls, and no kernel counts a launch."""
+    from repro_torch.training import TrainStepConfig, init_train_state
+    from repro_torch.training import make_train_step
+    model, _, batch = _train_model(cuda_device, torch.bfloat16)
+    ts = TrainStepConfig(remat="offload", offload_opt_state=True,
+                         peak_lr=1e-3, warmup=1)
+    params, opt = init_train_state(
+        model, torch.Generator(device=cuda_device).manual_seed(0),
+        torch.bfloat16, ts, cuda_device)
+    step = make_train_step(model, ts)
+    before = dict(tops.launch_counts())
+    losses = []
+    for _ in range(4):
+        params, opt, m = step(params, opt, batch)
+        losses.append(float(m["loss"]))
+    assert dict(tops.launch_counts()) == before
+    assert losses[-1] < losses[0]

@@ -33,7 +33,12 @@ for name in ("repro_torch.models.ssm", "repro_torch.kernels.ssd_scan",
              "repro_torch.pool.codec", "repro_torch.pool.executor",
              "repro_torch.core.calibration", "repro_torch.core.torch_exec",
              "repro_torch.obs.overlap", "repro_torch.obs.check",
-             "repro_torch.launch.serve"):
+             "repro_torch.launch.serve",
+             "repro_torch.optim.adamw", "repro_torch.optim.schedule",
+             "repro_torch.training.step", "repro_torch.offload.policies",
+             "repro_torch.offload.optstate", "repro_torch.models.remat",
+             "repro_torch.data.pipeline", "repro_torch.checkpoint.ckpt",
+             "repro_torch.launch.train"):
     assert name in names, name
 assert "repro" not in sys.modules, "the JAX package was imported"
 assert not any(m == "jax" or m.startswith("jax.") for m in sys.modules

@@ -145,3 +145,37 @@ def test_transfer_depth_bounds_in_flight_and_counts_waits():
     assert snap["waits_overlapped"] + snap["waits_blocked"] == 3
     assert snap["max_in_flight"] <= 2
     eng.close()
+
+
+def test_a_fetch_racing_a_spill_counts_its_bytes_once_at_issue():
+    """A prefetch whose worker is held back while its entry spills into an
+    int8 host tier: the fetch is counted when it is issued, with the bytes
+    of the tier it reads (the device copy it captured), and its worker adds
+    nothing when it finally runs. The LRU clock moves at issue too, so the
+    spill's victim does not depend on when the worker runs."""
+    page = 4 * 256 * 4                     # a 4 KiB fp32 page
+    pool = default_pool(device="cpu", device_capacity=2 * page,
+                        codec="int8", transfer_workers=1)
+    try:
+        a = torch.arange(1024, dtype=torch.float32)
+        pool.put("a", a, B.DEVICE_TIER)
+        pool.put("b", a + 1, B.DEVICE_TIER)
+        gate = threading.Event()
+        blocker = pool.transfer.submit(gate.wait, key="gate")
+        h = pool.prefetch("a")
+        clock_at_issue = pool.entries["a"].last_use
+        assert pool.stats.gets == 1 and pool.stats.bytes_fetched == page
+        # "a" was touched by the issue, so the spill takes "b"; touch "b"
+        # and spill again to push "a" down while its fetch is still queued
+        pool.get("b")
+        pool.put("c", a + 2, B.DEVICE_TIER)
+        assert pool.entries["a"].tier == B.HOST_TIER
+        assert pool.entries["a"].nbytes == 1024 + 4     # int8 + its scale
+        gate.set()
+        blocker.wait()
+        assert torch.equal(h.wait(), a)
+        assert pool.stats.gets == 2
+        assert pool.stats.bytes_fetched == 2 * page
+        assert pool.entries["a"].last_use == clock_at_issue
+    finally:
+        pool.close()
