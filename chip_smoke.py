@@ -11,8 +11,10 @@ non-zero exit):
 1. build   — compile the hand-written kernels (``csrc/*.cu``, one nvcc per
    source, all at once, sm_90a).
 2. kernels — each kernel against its plain PyTorch version on the card:
-   flash and ring decode at phi3's, zamba2's (head dim 112) and gemma2's
-   shapes, paged decode at phi3's and gemma2's, in bf16 (tolerance 2e-2)
+   flash and ring decode at phi3's, zamba2's (head dim 112), gemma2's,
+   granite-moe's (24 q / 8 kv heads of 64) and codeqwen's (32 heads of
+   128) shapes, paged decode at phi3's, gemma2's and granite's, in bf16
+   (tolerance 2e-2)
    and fp32 (2e-5, TF32 off); the ring kernel also at the edges of its
    split-K (all slots masked, splits with no valid slot, a ragged last
    split, a ring shorter than one split) and with a device (B,) pos at
@@ -23,8 +25,10 @@ non-zero exit):
    64-128: wgmma; bf16 B/C in the SSD scan: mma_tf32, on tensor cores),
    the paged case its split-K cut (split, splits, blocks).
    Kernel, plain and library times at each kernel's main shape (flash also
-   at head dim 112): device time (launches queued behind a spin kernel, so
-   host overhead between them is not counted) and time per call.
+   at head dim 112; flash, ring and paged decode also at granite's and
+   codeqwen's heads, under ``"shapes"`` in the kernels line): device time
+   (launches queued behind a spin kernel, so host overhead between them is
+   not counted) and time per call.
 3. serve   — phi3-mini-3.8b at full width and depth in bf16, weights drawn
    from a seeded generator on the card: ``ServeEngine.generate`` resident,
    then with ``offload_kv`` (the whole cache makes a Store/Prefetch round
@@ -115,20 +119,40 @@ non-zero exit):
    ``Model.forward`` at B=4, S=2048 in bf16, one SSD launch per layer (each
    the tensor-core instance), logits held against the plain path as in
    phase 3.
+11. moe    — granite-moe-3b-a800m (32 layers of GQA attention and a
+   40-expert top-8 MoE FFN) at full width and depth, served as in phase 3
+   (flash and the ring kernel at G=3, D=64; the fp32 logit rule holds
+   1e-4 while every MoE routing decision of the two paths agrees, an RMS
+   of 2e-2 after a flip; the bf16 rule by RMS error); the prefill's
+   dropped assignments and aux loss; the device time of the router,
+   dispatch, expert products and combine of one layer; one MoE layer's
+   forward and backward twice, bit for bit; the sched trace through
+   ``HyperOffloadSession`` in ``continuous`` (resident) and
+   ``kv_offload`` with the same tokens and ``SchedStats``; four training
+   steps (B=2, S=512) in ``none`` and ``offload`` + ``offload_opt_state``
+   with equal losses, grad norms and parameters.
+12. mla    — minicpm3-4b (62 MLA layers, no kernel: the reference's MLA is
+   plain XLA) at full width and depth, served as in phase 3 (the cache is
+   the 3-D latent ``ckv``/``krope``); the device time of one layer's
+   per-step latent up-projection and its share of the decode step; the
+   sched trace through the session with ``kv_offload``.
+13. codeqwen — codeqwen1.5-7b (dense MHA, 32 heads of 128) at full width
+   and depth, served as in phase 3.
 
-Output: the card's name and power limit, one line per phase, the total
+Output: the card's name and power limit, one line per phase (and one with
+its seconds), the total
 wall time, a JSON line ``{"kernels": [...]}`` and, last, ``{"ok": true,
 "device": {...}}``. The
-launch counts in the kernels line are the sums over phases 3 to 10 of each
-phase's own count (the train phase's are 0): every count is set to 0 just before a phase drives the
-port and read just after. Without a CUDA device, or without the port
+launch counts in the kernels line are the sums over phases 3 to 13 of each
+phase's own count (the train phase's and the training of phase 11 are 0):
+every count is set to 0 just before a phase drives the port and read just
+after. Without a CUDA device, or without the port
 beside this file, it prints no result and exits with 2.
 """
 
 from __future__ import annotations
 
 import dataclasses
-import gc
 import json
 import math
 import re
@@ -191,6 +215,17 @@ TRAIN_TAGS = 3          # resid, attn_out, mlp_out: parked per layer
 TRAIN_LAUNCH_ARGV = ["--arch", ARCH, "--steps", "2", "--remat", "offload",
                      "--offload-opt-state"]
 
+# the moe, mla and codeqwen phases: granite's MoE (40 experts, top-8),
+# minicpm3's MLA and codeqwen's MHA at head dim 128, at full width and
+# depth, with phase 3's traffic; granite also trains (B=2, S=512) in two
+# memory modes
+MOE_ARCH, MLA_ARCH, MHA_ARCH = ("granite-moe-3b-a800m", "minicpm3-4b",
+                                "codeqwen1.5-7b")
+MOE_TRAIN_MODES = (("none", False), ("offload", True))
+# head shapes of the new paths, held in the kernels phase: (label, heads,
+# kv heads, head dim)
+NEW_HEADS = (("granite", 24, 8, 64), ("codeqwen", 32, 32, 128))
+
 FLASH = {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention.py:73"}
@@ -242,18 +277,34 @@ def main() -> int:
     kernels = {k["name"]: dict(k, launches=0)
                for k in (FLASH, PAGED, DECODE, SSD)}
     t_start = time.perf_counter()
-    phase_build()
-    phase_kernels(torch, dev, kernels)
-    model, params = phase_serve(torch, dev, kernels)
-    runs = phase_sched(torch, dev, kernels, model, params)
-    phase_session(torch, dev, kernels, model, params,
-                  runs["kv_offload-spill"])
+
+    def run(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        log("phase", name=name, seconds=f"{time.perf_counter() - t0:.2f}")
+        return out
+
+    run("build", phase_build)
+    run("kernels", phase_kernels, torch, dev, kernels)
+    model, params = run("serve", phase_serve, torch, dev, kernels)
+    runs = run("sched", phase_sched, torch, dev, kernels, model, params)
+    before = torch.cuda.memory_allocated()
+    run("session", phase_session, torch, dev, kernels, model, params,
+        runs["kv_offload-spill"])
+    # the phase's sessions are closed and dropped (the launcher's inside
+    # its main): what they handed out is freed without a collection
+    torch.cuda.empty_cache()
+    log("session", allocated_before_gb=f"{before / 1e9:.3f}",
+        allocated_after_gb=f"{torch.cuda.memory_allocated() / 1e9:.3f}")
     del model, params, runs
     torch.cuda.empty_cache()
-    phase_train(torch, dev)
-    phase_paged(torch, dev, kernels)
-    phase_hybrid(torch, dev, kernels)
-    phase_ssm(torch, dev, kernels)
+    run("train", phase_train, torch, dev)
+    run("paged", phase_paged, torch, dev, kernels)
+    run("hybrid", phase_hybrid, torch, dev, kernels)
+    run("ssm", phase_ssm, torch, dev, kernels)
+    run("moe", phase_moe, torch, dev, kernels)
+    run("mla", phase_mla, torch, dev, kernels)
+    run("codeqwen", phase_codeqwen, torch, dev, kernels)
     for k in kernels.values():
         assert k["launches"] > 0, f"{k['name']} never launched on a path"
     log("total", seconds=f"{time.perf_counter() - t_start:.2f}")
@@ -378,7 +429,8 @@ def kernels_flash(torch, dev, entry, randn, tols) -> None:
         ("gemma2", 2, 16, 8, PROMPT, 256, 4096, 50.0),
         ("gemma2-short-window", 2, 16, 8, 300, 256, 128, 50.0),
         ("ragged-g8", 2, 8, 1, 33, 96, None, 30.0),
-    ]
+    ] + [(name, 4, hq, hkv, PROMPT, d, None, None)
+         for name, hq, hkv, d in NEW_HEADS]
     main_err = 0.0
     for name, b, hq, hkv, s, d, window, cap in flash_cases:
         for dtype, tol in tols.items():
@@ -392,32 +444,43 @@ def kernels_flash(torch, dev, entry, randn, tols) -> None:
                         flash_attention_ref(q, k, v, **kw), tol)
             if name == "phi3" and dtype == torch.bfloat16:
                 main_err = err
-    # times at phi3's head dim (the main shape, in the kernels line) and at
-    # zamba2's 112
-    b, h, s = 4, 32, PROMPT
-    for d in (96, 112):
-        q, k, v = (randn(b, h, s, d, dtype=torch.bfloat16) for _ in range(3))
+    # times at phi3's head dim (the main shape, in the kernels line), at
+    # zamba2's 112 and at the new paths' heads (granite G=3 D=64, codeqwen
+    # G=1 D=128)
+    b, s = 4, PROMPT
+    for label, h, hkv, d in (("phi3", 32, 32, 96), ("zamba2", 32, 32, 112),
+                             *NEW_HEADS):
+        q = randn(b, h, s, d, dtype=torch.bfloat16)
+        k, v = (randn(b, hkv, s, d, dtype=torch.bfloat16) for _ in range(2))
         scale = d ** -0.5
         instance = flash_instance(torch, flash_attention_cuda, q, k, v,
                                   dict(scale=scale))
         assert instance == "wgmma", (d, instance)
-        nbytes = 4 * q.numel() * q.element_size()      # q, k, v in; o out
+        nbytes = 2 * (q.numel() + k.numel()) * q.element_size()  # q,k,v,o
         flops = 4 * b * h * d * s * (s + 1) / 2        # causal: QK^T and PV
         bound_ms, bound_by = bound(nbytes, flops)
         ms, call_ms = timed(torch, lambda: flash_attention_cuda(q, k, v,
                                                                scale=scale))
         plain_ms, plain_call_ms = timed(
             torch, lambda: flash_attention_ref(q, k, v, scale=scale))
+        # the library call on the same inputs, GQA by repeated k/v heads
+        kl, vl = (t.repeat_interleave(h // hkv, dim=1) for t in (k, v))
         library_ms, _ = timed(torch, lambda: F.scaled_dot_product_attention(
-            q, k, v, is_causal=True, scale=scale))
-        if d == 96:
+            q, kl, vl, is_causal=True, scale=scale))
+        del kl, vl
+        if label == "phi3":
             entry.update(max_abs_err=main_err, tol=tols[torch.bfloat16],
                          ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                          bound_by=bound_by, library_ms=library_ms)
+        else:
+            entry.setdefault("shapes", {})[label] = dict(
+                ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=library_ms)
         log("kernels", kernel="flash_attention", instance=instance,
-            shape=f"B{b}xH{h}xS{s}xD{d}/bf16", ms=f"{ms:.4f}",
-            plain_ms=f"{plain_ms:.4f}", library_ms=f"{library_ms:.4f}",
-            bound_ms=f"{bound_ms:.4f}", call_ms=f"{call_ms:.4f}",
+            shape=f"{label}/B{b}xHq{h}xHkv{hkv}xS{s}xD{d}/bf16",
+            ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}",
+            library_ms=f"{library_ms:.4f}", bound_ms=f"{bound_ms:.4f}",
+            bound_by=bound_by, call_ms=f"{call_ms:.4f}",
             plain_call_ms=f"{plain_call_ms:.4f}")
 
 
@@ -448,6 +511,7 @@ def kernels_paged(torch, dev, entry, randn, tols) -> None:
         ("gemma2", 4, 16, 8, 256, [5, 1, 9, 3], 7, 50.0),
         ("tail-only", 4, 32, 32, 96, [], 5, None),
         ("empty", 4, 32, 32, 96, [], 0, None),
+        ("granite", 4, 24, 8, 64, list(range(16)), 19, None),
     ]
     for name, b, hq, hkv, d, table, tail_len, cap in paged_cases:
         for dtype, tol in tols.items():
@@ -470,6 +534,9 @@ def kernels_paged(torch, dev, entry, randn, tols) -> None:
             if name == "phi3" and dtype == torch.bfloat16:
                 entry.update(max_abs_err=err, tol=tol)
                 main_args = args
+            if name == "granite" and dtype == torch.bfloat16:
+                granite_args = args
+    paged_time(torch, dev, entry, granite_args, "granite")
     q, kp, vp, table, kt, vt, tail_len = main_args
     b, hq, d = q.shape
     hkv, tokens = kt.shape[2], table.numel() * PAGE + tail_len
@@ -495,6 +562,31 @@ def kernels_paged(torch, dev, entry, randn, tols) -> None:
         call_ms=f"{call_ms:.4f}", plain_call_ms=f"{plain_call_ms:.4f}")
 
 
+def paged_time(torch, dev, entry, args, label) -> None:
+    """Kernel and plain times of the paged kernel on ``args`` (bf16), with
+    the byte bound, under ``entry["shapes"][label]``."""
+    from repro_torch.kernels.paged_attention import paged_decode_attention_cuda
+    from repro_torch.kernels.ref import paged_decode_attention_ref
+
+    q, kp, vp, table, kt, vt, tail_len = args
+    b, hq, d = q.shape
+    hkv, tokens = kt.shape[2], table.numel() * PAGE + tail_len
+    nbytes = (2 * q.numel() + 2 * b * tokens * hkv * d) * q.element_size()
+    bound_ms, bound_by = bound(nbytes, 4 * b * hq * d * tokens)
+    scale = d ** -0.5
+    ms, _ = timed(torch, lambda: paged_decode_attention_cuda(*args,
+                                                             scale=scale))
+    plain_ms, _ = timed(torch, lambda: paged_decode_attention_ref(
+        *args, scale=scale))
+    entry.setdefault("shapes", {})[label] = dict(
+        ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+        library_ms=None)
+    log("kernels", kernel="paged_decode_attention",
+        shape=f"{label}/B{b}xHq{hq}xHkv{hkv}xD{d}/{tokens}tok/bf16",
+        ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}",
+        bound_ms=f"{bound_ms:.4f}", bound_by=bound_by)
+
+
 def kernels_decode(torch, dev, entry, randn, tols) -> None:
     from repro_torch.kernels.paged_attention import (
         decode_attention_cuda,
@@ -509,6 +601,8 @@ def kernels_decode(torch, dev, entry, randn, tols) -> None:
     cases = [("phi3", 4, 32, 32, MAX_SEQ, 96, PROMPT + 8, None),
              ("zamba2", 4, 32, 32, MAX_SEQ, 112, PROMPT, None),
              ("gemma2-wrapped", 2, 16, 8, 4096, 256, 5000, 50.0)]
+    cases += [(name, 4, hq, hkv, MAX_SEQ, d, PROMPT + 8, None)
+              for name, hq, hkv, d in NEW_HEADS]
     cases += [(f"wrap-pos{p}", 2, 4, 2, 64, 32, p, None)
               for p in (63, 64, 65, 95, 96, 200)]
     # the split-K cuts (tests/test_torch_kernels.py's split model), as
@@ -534,6 +628,9 @@ def kernels_decode(torch, dev, entry, randn, tols) -> None:
             if name == "phi3" and dtype == torch.bfloat16:
                 entry.update(max_abs_err=err, tol=tol)
                 main = (q, k, v, pos)
+            if dtype == torch.bfloat16 and name in {n for n, *_ in
+                                                    NEW_HEADS}:
+                decode_time(torch, entry, (q, k, v, pos), name)
     q, k, v, pos = main
     b, hq, d = q.shape
     c, hkv = k.shape[1], k.shape[2]
@@ -572,32 +669,74 @@ def kernels_decode(torch, dev, entry, randn, tols) -> None:
     kernels_decode_rows(torch, dev, entry, randn, tols, ms)
 
 
+def decode_time(torch, entry, args, label) -> None:
+    """Kernel, plain and library (SDPA with the ring mask, k/v heads
+    repeated for GQA) times of the ring kernel at a scalar pos, with the
+    byte bound over the slots that hold a token, under
+    ``entry["shapes"][label]``."""
+    from repro_torch.kernels.paged_attention import decode_attention_cuda
+    from repro_torch.kernels.ref import decode_attention_ref
+    import torch.nn.functional as F
+
+    q, k, v, pos = args
+    b, hq, d = q.shape
+    c, hkv = k.shape[1], k.shape[2]
+    rows = min(pos + 1, c)
+    nbytes = (2 * q.numel() + 2 * b * rows * hkv * d) * q.element_size()
+    bound_ms, bound_by = bound(nbytes, 4 * b * hq * rows * d)
+    scale = d ** -0.5
+    kt, vt = k.transpose(1, 2), v.transpose(1, 2)
+    ms, _ = timed(torch, lambda: decode_attention_cuda(q, k, v, pos,
+                                                       scale=scale))
+    plain_ms, _ = timed(torch, lambda: decode_attention_ref(
+        q, kt, vt, pos, scale=scale))
+    j = torch.arange(c, device=q.device)
+    mask = ((pos - torch.remainder(pos - j, c)) >= 0)[None, :]
+    kl, vl = (t.repeat_interleave(hq // hkv, dim=1) for t in (kt, vt))
+    library_ms, _ = timed(torch, lambda: F.scaled_dot_product_attention(
+        q[:, :, None], kl, vl, attn_mask=mask, scale=scale))
+    entry.setdefault("shapes", {})[label] = dict(
+        ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+        library_ms=library_ms)
+    log("kernels", kernel="decode_attention",
+        shape=f"{label}/B{b}xHq{hq}xHkv{hkv}xC{c}xD{d}/pos{pos}/bf16",
+        valid_slots=rows, ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}",
+        library_ms=f"{library_ms:.4f}", bound_ms=f"{bound_ms:.4f}",
+        bound_by=bound_by)
+
+
 def kernels_decode_rows(torch, dev, entry, randn, tols, scalar_ms) -> None:
     """The ring kernel with a device (B,) pos, each row at its own position
     (the continuous scheduler's decode): phi3's shape with rows at C - 1,
-    mid-ring and a free slot decoded at 0, then with wrapped rows; bf16 and
-    fp32 against the plain version at the same (B,) pos. The first case's
+    mid-ring and a free slot decoded at 0, then with wrapped rows, and
+    granite's and codeqwen's heads at the first rows; bf16 and fp32
+    against the plain version at the same (B,) pos. The first case's
     device time is logged beside the scalar path's (``scalar_ms``)."""
     from repro_torch.kernels.paged_attention import decode_attention_cuda
     from repro_torch.kernels.ref import decode_attention_ref
 
-    b, hq, hkv, c, d = BATCH, 32, 32, MAX_SEQ, 96
-    scale = d ** -0.5
-    for name, rows in (("per-row", SCHED_ROWS),
-                       ("per-row-wrapped", (600, 37, 0, 2 * c - 1))):
+    b, c = BATCH, MAX_SEQ
+    for name, rows, (hq, hkv, d) in (
+            ("phi3-per-row", SCHED_ROWS, (32, 32, 96)),
+            ("phi3-per-row-wrapped", (600, 37, 0, 2 * c - 1), (32, 32, 96)),
+            *((f"{label}-per-row", SCHED_ROWS, (h, g, dd))
+              for label, h, g, dd in NEW_HEADS)):
+        scale = d ** -0.5
         pos = torch.tensor(rows, dtype=torch.int32, device=dev)
         for dtype, tol in tols.items():
             q = randn(b, hq, d, dtype=dtype)
             k, v = randn(b, c, hkv, d, dtype=dtype), randn(b, c, hkv, d,
                                                           dtype=dtype)
-            err = check(torch, f"decode/phi3-{name}{list(rows)}/"
+            err = check(torch, f"decode/{name}{list(rows)}/"
                         f"{str(dtype)[6:]}",
                         decode_attention_cuda(q, k, v, pos, scale=scale),
                         decode_attention_ref(q, k.transpose(1, 2),
                                              v.transpose(1, 2), pos,
                                              scale=scale), tol)
-            if name == "per-row" and dtype == torch.bfloat16:
+            if name == "phi3-per-row" and dtype == torch.bfloat16:
                 main = (q, k, v, err)
+    hq, hkv, d = 32, 32, 96
+    scale = d ** -0.5
     q, k, v, err = main
     pos = torch.tensor(SCHED_ROWS, dtype=torch.int32, device=dev)
     kt, vt = k.transpose(1, 2), v.transpose(1, 2)
@@ -751,14 +890,27 @@ def check_logits(torch, phase: str, run, params, n_prompts: int = 1,
         return d.abs().max().item(), d.pow(2).mean().sqrt().item()
 
     for i, (logits, plain_logits) in enumerate(runs):
-        logits32 = run(params32, torch.float32, i)
-        with use_attention_impl("plain"):
+        with moe_routes() as kernel_routes:
+            logits32 = run(params32, torch.float32, i)
+        with use_attention_impl("plain"), moe_routes() as plain_routes:
             plain32 = run(params32, torch.float32, i)
         err32 = (logits32 - plain32).abs().max().item()
+        # an MoE router picks its experts by comparing probabilities: the
+        # two paths' summation orders may flip a near-tie, which changes
+        # the function; 1e-4 holds while every routing decision agrees
+        flips = routing_flips(kernel_routes, plain_routes)
         log(phase, check="fp32 logits kernel vs plain", prompt=i,
-            max_abs_err=f"{err32:.3e}", tol=1e-4)
+            max_abs_err=f"{err32:.3e}", tol=1e-4, moe_layers=len(kernel_routes),
+            routing_flips=flips)
         assert bool(torch.isfinite(logits32).all())
-        assert torch.allclose(logits32, plain32, atol=1e-4, rtol=1e-4), err32
+        if flips:
+            rms32 = (logits32 - plain32).pow(2).mean().sqrt().item()
+            log(phase, check="fp32 logits after a routing flip", prompt=i,
+                rms=f"{rms32:.3e}", rms_tol=2e-2)
+            assert rms32 <= 2e-2, rms32
+        else:
+            assert torch.allclose(logits32, plain32, atol=1e-4,
+                                  rtol=1e-4), err32
         e_kernel, rms_kernel = off(logits, plain32)
         e_plain, rms_plain = off(plain_logits, plain32)
         gap, rms_gap = off(logits, plain_logits)
@@ -783,13 +935,56 @@ def check_logits(torch, phase: str, run, params, n_prompts: int = 1,
     torch.cuda.empty_cache()
 
 
+class _Routes(list):
+    """Recorded routing calls, and their aux losses in ``aux``."""
+
+    def __init__(self):
+        super().__init__()
+        self.aux = []
+
+
+class moe_routes:
+    """Records the decisions of every MoE router call inside the block:
+    each call's expert choices and kept-assignment mask (nothing for a
+    dense model)."""
+
+    def __enter__(self):
+        from repro_torch.models import moe
+        self.real, self.calls = moe.route, _Routes()
+
+        def recording(cfg, router, xf):
+            r = self.real(cfg, router, xf)
+            self.calls.append((r.top_e.clone(), r.keep.clone(),
+                               r.dest.clone()))
+            self.calls.aux.append(r.aux.clone())
+            return r
+
+        moe.route = recording
+        return self.calls
+
+    def __exit__(self, *exc):
+        from repro_torch.models import moe
+        moe.route = self.real
+
+
+def routing_flips(a, b) -> int:
+    """Assignments whose expert, kept flag or buffer row differ between
+    two recorded runs of the same calls."""
+    assert len(a) == len(b)
+    return sum(int((ea != eb).sum()) + int((ka != kb).sum())
+               + int((da != db).sum())
+               for (ea, ka, da), (eb, kb, db) in zip(a, b))
+
+
 def check_decode_logits(torch, phase: str, model, params, tokens) -> None:
     """One decode step's logits with the ring kernel against the plain
     decode (``use_attention_impl("plain")``), from one cache that a plain
     prefill filled, at pos = PROMPT. fp32 (TF32 off): within 1e-4. bf16:
     the kernel path's RMS error against fp32 plain within 5 % of the plain
     bf16 path's (the two differ only in the decode attention, which both
-    sum in fp32 and round to bf16 once)."""
+    sum in fp32 and round to bf16 once). Where an MoE router's decisions
+    differ between the two paths, the fp32 logits are held to an RMS of
+    2e-2 and the bf16 ones by ``check_logits``'s rule (plain + 2e-2)."""
     from repro_torch.models.runtime import use_attention_impl
 
     dev = tokens.device
@@ -802,15 +997,17 @@ def check_decode_logits(torch, phase: str, model, params, tokens) -> None:
                                               cache)
             tok = logits[:, 0].argmax(-1).to(torch.int32)[:, None]
             twin = _tree_map(lambda t: t.clone(), cache)
-            kernel, _ = model.decode_step(weights, cache, tok, PROMPT)
-            with use_attention_impl("plain"):
+            with moe_routes() as kernel_routes:
+                kernel, _ = model.decode_step(weights, cache, tok, PROMPT)
+            with use_attention_impl("plain"), moe_routes() as plain_routes:
                 plain, _ = model.decode_step(weights, twin, tok, PROMPT)
         del cache, twin
-        return kernel.float(), plain.float()
+        return kernel.float(), plain.float(), routing_flips(kernel_routes,
+                                                            plain_routes)
 
-    kernel16, plain16 = step(params, torch.bfloat16)
+    kernel16, plain16, flips16 = step(params, torch.bfloat16)
     params32 = _tree_map(lambda t: t.float(), params)
-    kernel32, plain32 = step(params32, torch.float32)
+    kernel32, plain32, flips = step(params32, torch.float32)
     del params32
     err32 = (kernel32 - plain32).abs().max().item()
     assert bool(torch.isfinite(kernel16).all())
@@ -818,12 +1015,21 @@ def check_decode_logits(torch, phase: str, model, params, tokens) -> None:
     rms_kernel = (kernel16 - plain32).pow(2).mean().sqrt().item()
     rms_plain = (plain16 - plain32).pow(2).mean().sqrt().item()
     log(phase, check="decode-step logits kernel vs plain", pos=PROMPT,
-        fp32_max_abs_err=f"{err32:.3e}", fp32_tol=1e-4,
+        fp32_max_abs_err=f"{err32:.3e}", fp32_tol=1e-4, routing_flips=flips,
+        bf16_routing_flips=flips16,
         bf16_kernel_rms=f"{rms_kernel:.3e}", bf16_plain_rms=f"{rms_plain:.3e}",
-        rms_tol=f"1.05*plain={1.05 * rms_plain:.3e}",
+        rms_tol=(f"plain+2e-2={rms_plain + 2e-2:.3e}" if flips16
+                 else f"1.05*plain={1.05 * rms_plain:.3e}"),
         bf16_kernel_vs_plain_max_abs=f"{(kernel16 - plain16).abs().max().item():.3e}")
-    assert torch.allclose(kernel32, plain32, atol=1e-4, rtol=1e-4), err32
-    assert rms_kernel <= 1.05 * rms_plain, (rms_kernel, rms_plain)
+    if flips:   # as in check_logits
+        rms32 = (kernel32 - plain32).pow(2).mean().sqrt().item()
+        assert rms32 <= 2e-2, rms32
+    else:
+        assert torch.allclose(kernel32, plain32, atol=1e-4, rtol=1e-4), err32
+    # a bf16 MoE routing flip between the two paths changes the function:
+    # then the kernel path is held by check_logits's bf16 rule
+    tol = rms_plain + 2e-2 if flips16 else 1.05 * rms_plain
+    assert rms_kernel <= tol, (rms_kernel, rms_plain, flips16)
     del kernel16, plain16, kernel32, plain32
     torch.cuda.empty_cache()
 
@@ -837,11 +1043,12 @@ def mixers(cfg):
 
 
 def serve(torch, dev, kernels, arch: str, phase: str, n_prompts: int = 1,
-          stat: str = "max"):
+          stat: str = "max", metrics=None):
     """``ServeEngine.generate`` of ``arch`` at full width and depth in
     bf16, resident then ``offload_kv``; returns (model, params, tokens).
     The prefill logits are held against the plain path on ``n_prompts``
-    prompts by ``stat`` (see :func:`check_logits`)."""
+    prompts by ``stat`` (see :func:`check_logits`). ``metrics`` (a dict)
+    receives the prefill ms and each mode's decode ms a step."""
     from repro_torch.configs import REGISTRY
     from repro_torch.kernels import ops
     from repro_torch.models.model import build_model
@@ -948,6 +1155,11 @@ def serve(torch, dev, kernels, arch: str, phase: str, n_prompts: int = 1,
     del pool.put
     moved = stats["bytes_stored"] + stats["bytes_fetched"]
     steps = NEW_TOKENS - 1
+    if metrics is not None:
+        metrics.update(
+            prefill_ms=kernel_prefill_s * 1e3,
+            resident_decode_ms=(res_s - kernel_prefill_s) / steps * 1e3,
+            offload_decode_ms=(off_s - kernel_prefill_s) / steps * 1e3)
     log(phase, mode="resident", generate_s=f"{res_s:.3f}",
         prefill_ms=f"{kernel_prefill_s * 1e3:.2f}",
         plain_prefill_ms=f"{plain_prefill_s * 1e3:.2f}",
@@ -1475,6 +1687,13 @@ def sched_run(torch, dev, kernels, model, params, trace, mode, kw, n_attn,
                                if fetch_s else "n/a"))
     result["pool"] = snap
     sched.close()
+    # the wrappers above are the scheduler's own attributes and refer back
+    # to it: drop them, so the scheduler (and its caches) is freed when
+    # dropped, with no reference cycle left for the collector
+    for name in ("_decode", "_park_and_issue", "_prefill", "_chunk_prefill",
+                 "_decode_active", "step", "_fetch_prefix_pages",
+                 "_finish_prefill"):
+        vars(sched).pop(name, None)
     if cache is not None and session is None:
         cache.close()
     if pool is not None:
@@ -1750,6 +1969,7 @@ def phase_session(torch, dev, kernels, model, params, spill) -> None:
                       probe=int8_probe)
         check_wire_bytes(none["pool"], q["pool"], numel)
         check_spilled_page(torch, host, first)
+        del host.put, first   # the wrapper refers back to the tier
         matching = _matching(none["tokens"], q["tokens"])
         total = sum(len(v) for v in none["tokens"].values())
         log("session", check="tokens, int8 vs none (reported)",
@@ -2219,29 +2439,25 @@ def link_rates(torch, dev, nbytes: int = 1 << 30):
     return h2d, d2h, both
 
 
-def phase_train(torch, dev) -> None:
-    """phi3-mini at full width, bf16 parameters and fp32 moments, four
-    steps in each memory mode from the same initial parameters over the
-    same ``SyntheticTokens`` batches; then the training launcher. The
-    train step runs the plain path (the kernels are forward-only): no
-    kernel may count a launch here."""
-    from repro_torch.configs import REGISTRY
+def train_modes(torch, dev, phase: str, cfg, modes):
+    """Four ``TRAIN_STEPS`` of ``cfg`` (bf16 parameters, fp32 moments) in
+    each memory mode of ``modes`` ((remat, offload_opt_state) pairs) from
+    the same seeded initialisation over the same repeated
+    ``SyntheticTokens`` batch. Logs per mode ms per step, peak device
+    memory, activation and moment bytes a step, losses, grad norms and the
+    largest differences from the first mode, then a profiled step. Holds:
+    finite, falling losses; ``offload`` parking ``TRAIN_TAGS`` values a
+    layer a step; the moments' bytes each way under ``offload_opt_state``;
+    no kernel launch (the train step runs the plain path). Returns the
+    results by mode label."""
     from repro_torch.data import SyntheticTokens
     from repro_torch.kernels import ops
-    from repro_torch.launch import train as launcher
     from repro_torch.models.model import build_model
     from repro_torch.optim.adamw import tree_items
     from repro_torch.training import (
         TrainStepConfig, init_train_state, make_train_step,
     )
 
-    # what earlier phases left behind (a closed session whose registry
-    # still refers to it keeps its engines alive until a collection) must
-    # not sit under this phase's peaks
-    gc.collect()
-    torch.cuda.empty_cache()
-    log("train", allocated_at_start_gb=f"{torch.cuda.memory_allocated() / 1e9:.3f}")
-    cfg = train_config(torch, REGISTRY[ARCH])
     model = build_model(cfg)
     layers = sum(s.repeats * len(s.pattern) for s in cfg.segments)
     # every step fits the same batch: at random initialisation the loss
@@ -2251,15 +2467,12 @@ def phase_train(torch, dev) -> None:
                             global_batch=TRAIN_BATCH, seed=0).batch(
                                 0, device=dev)
     batches = [batch] * TRAIN_STEPS
-    h2d, d2h, both = link_rates(torch, dev)
-    log("train", link_h2d_gbps=f"{h2d:.2f}", link_d2h_gbps=f"{d2h:.2f}",
-        link_both_ways_gbps=f"{both:.2f}")
     act_per_step = TRAIN_TAGS * layers * TRAIN_BATCH * TRAIN_SEQ \
         * cfg.d_model * 2
     results = {}
     ref_params = None
     ops.reset_launch_counts()
-    for remat, opt in TRAIN_MODES:
+    for remat, opt in modes:
         label = remat + ("+opt" if opt else "")
         ts = TrainStepConfig(remat=remat, offload_opt_state=opt, **TRAIN_HP)
         t0 = time.perf_counter()
@@ -2299,18 +2512,19 @@ def phase_train(torch, dev) -> None:
         if opt:
             fields["moment_stream_gbps"] = f"{2 * mom_parked / steady / 1e6:.2f}"
         if ref_params is None:
-            ref_params = [x.to("cpu") for _, x in tree_items(params)]
-            dp = 0.0
+            ref_params = [x.to("cpu", copy=True)
+                          for _, x in tree_items(params)]
+            dp, first = 0.0, label
         else:
             dp = max_param_diff(torch, ref_params, params)
         if results:
-            dl = max(abs(a - b) for a, b in zip(results["none"]["losses"],
+            dl = max(abs(a - b) for a, b in zip(results[first]["losses"],
                                                 losses))
             fields.update(max_dparam=f"{dp:.3e}", max_dloss=f"{dl:.3e}")
-        log("train", **fields)
+        log(phase, **fields)
         results[label] = dict(losses=losses, peak=peak, dp=dp,
                               act=act_parked, mom=mom_parked,
-                              moment_bytes=moment_bytes)
+                              moment_bytes=moment_bytes, grad_norms=gns)
         assert all(map(math.isfinite, losses)), losses
         assert losses[-1] < losses[0], (label, losses)
         if remat == "offload":
@@ -2321,15 +2535,39 @@ def phase_train(torch, dev) -> None:
         # (of a wall time the profiler itself lengthens) and top kernels
         (busy, top), wall = synced_s(torch, lambda: device_busy_ms(
             torch, lambda: step(params, state, batches[0])))
-        log("train", mode=label, profiled_step_ms=f"{wall * 1e3:.2f}",
+        log(phase, mode=label, profiled_step_ms=f"{wall * 1e3:.2f}",
             device_busy_ms=f"{busy:.2f}",
             idle_share=f"{max(0.0, 1 - busy / (wall * 1e3)):.3f}",
             top_kernels=json.dumps(top))
         del params, state, step
         torch.cuda.empty_cache()
     counts = ops.launch_counts()
-    log("train", launches=json.dumps(counts))
+    log(phase, launches=json.dumps(counts))
     assert not any(counts.values()), counts
+    del ref_params
+    return results
+
+
+def phase_train(torch, dev) -> None:
+    """phi3-mini at full width, bf16 parameters and fp32 moments, four
+    steps in each memory mode from the same initial parameters over the
+    same ``SyntheticTokens`` batches; then the training launcher. The
+    train step runs the plain path (the kernels are forward-only): no
+    kernel may count a launch here."""
+    from repro_torch.configs import REGISTRY
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as launcher
+
+    # what the earlier phases left allocated: the sessions and schedulers
+    # they dropped are freed by reference counting, with no collection
+    torch.cuda.empty_cache()
+    log("train", allocated_at_start_gb=f"{torch.cuda.memory_allocated() / 1e9:.3f}")
+    cfg = train_config(torch, REGISTRY[ARCH])
+    layers = sum(s.repeats * len(s.pattern) for s in cfg.segments)
+    h2d, d2h, both = link_rates(torch, dev)
+    log("train", link_h2d_gbps=f"{h2d:.2f}", link_d2h_gbps=f"{d2h:.2f}",
+        link_both_ways_gbps=f"{both:.2f}")
+    results = train_modes(torch, dev, "train", cfg, TRAIN_MODES)
     # agreement with none: the modes run the same arithmetic; the bound
     # allows a bf16 rounding of every parameter (2^-8 of the largest
     # magnitude, which TRAIN_HP keeps below 1) and a sign-like AdamW step
@@ -2348,7 +2586,6 @@ def phase_train(torch, dev) -> None:
     log("train", tol_dparam=f"{p_tol:.3e}", tol_dloss=f"{l_tol:.3e}",
         moments_saved_gb=f"{(off['peak'] - opt['peak']) / 1e9:.3f}",
         moments_gb=f"{opt['moment_bytes'] / 1e9:.3f}")
-    del ref_params
     # the launcher, in process, at full width (fp32, its default)
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
@@ -2561,6 +2798,225 @@ def phase_ssm(torch, dev, kernels) -> None:
         forward_ms=f"{total_s / reps * 1e3:.2f}",
         tok_per_s=f"{BATCH * SSM_SEQ * reps / total_s:.1f}")
     del params
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# 11. moe: granite-moe-3b-a800m; 12. mla: minicpm3-4b; 13. codeqwen1.5-7b
+# ---------------------------------------------------------------------------
+
+
+def phase_moe(torch, dev, kernels) -> None:
+    """granite-moe-3b-a800m (32 layers of GQA attention, G=3, D=64, and a
+    40-expert top-8 MoE FFN) at full width and depth: served as in phase 3
+    (the fp32 logit rule counts MoE routing flips; the bf16 rule holds the
+    RMS error), its routing (dropped assignments, aux loss), the device
+    time of the MoE pieces, two runs of one MoE layer bit for bit, the sched
+    trace through ``HyperOffloadSession`` resident and ``kv_offload``, then
+    training in ``none`` and ``offload`` + ``offload_opt_state`` with equal
+    losses and parameters."""
+    from repro_torch.configs import REGISTRY
+
+    model, params, tokens = serve(torch, dev, kernels, MOE_ARCH, "moe",
+                                  stat="rms")
+    moe_routing(torch, model, params, tokens)
+    moe_costs(torch, dev, model, params)
+    moe_determinism(torch, dev, model, params)
+    sched_session(torch, dev, kernels, model, params, "moe",
+                  ("continuous", "kv_offload"))
+    del model, params, tokens
+    torch.cuda.empty_cache()
+    results = train_modes(torch, dev, "moe", REGISTRY[MOE_ARCH],
+                          MOE_TRAIN_MODES)
+    none, off = results["none"], results["offload+opt"]
+    log("moe", check="training, offload+opt vs none",
+        losses_equal=off["losses"] == none["losses"],
+        grad_norms_equal=off["grad_norms"] == none["grad_norms"],
+        max_dparam=off["dp"],
+        peak_saved_gb=f"{(none['peak'] - off['peak']) / 1e9:.3f}")
+    assert off["losses"] == none["losses"], (off["losses"], none["losses"])
+    assert off["grad_norms"] == none["grad_norms"] and off["dp"] == 0.0
+
+
+def moe_routing(torch, model, params, tokens) -> None:
+    """One bf16 prefill of the serve traffic: each layer's dropped
+    assignments (beyond an expert's capacity) and the summed aux loss."""
+    from repro_torch.models import moe
+
+    cfg = model.cfg
+    with torch.inference_mode(), moe_routes() as routes:
+        cache = model.init_cache(BATCH, MAX_SEQ, torch.bfloat16, tokens.device)
+        model.prefill(params, {"tokens": tokens}, cache)
+        del cache
+    n = BATCH * PROMPT
+    dropped = [int((~keep).sum()) for _, keep, _ in routes]
+    aux = sum(float(a) for a in routes.aux)
+    assert len(dropped) == cfg.n_layers and math.isfinite(aux)
+    log("moe", prefill_tokens=n, experts=cfg.moe.n_experts,
+        top_k=cfg.moe.top_k, capacity=moe.expert_capacity(n, cfg),
+        capacity_factor=cfg.moe.capacity_factor,
+        dropped_assignments=sum(dropped),
+        of=n * cfg.moe.top_k * cfg.n_layers,
+        dropped_share=f"{sum(dropped) / (n * cfg.moe.top_k * cfg.n_layers):.5f}",
+        dropped_per_layer=json.dumps(dropped), aux_loss=f"{aux:.6f}")
+
+
+def moe_costs(torch, dev, model, params) -> None:
+    """Device ms of the MoE pieces of one layer at the prefill's and a
+    decode step's token counts (bf16), and per step (times the layers):
+    the router (logits, top-k, the dispatch's indices), the dispatch
+    gather, the expert products, the combine, and the whole FFN."""
+    from repro_torch.models import moe
+    from repro_torch.models.transformer import _index
+
+    cfg = model.cfg
+    p = _index(params["segments"][0], 0)["p0"]["ffn"]
+    e, d = cfg.moe.n_experts, cfg.d_model
+    gen = torch.Generator(device=dev).manual_seed(5)
+    for label, n in (("prefill", BATCH * PROMPT), ("decode", BATCH)):
+        x = torch.randn(n, d, device=dev, generator=gen).to(torch.bfloat16)
+        with torch.inference_mode():
+            r = moe.route(cfg, p["router"], x)
+            ein = moe._Dispatch.apply(x, r.row_token, r.token_dest) \
+                .reshape(e, r.capacity, d)
+
+            def experts():
+                h = torch.nn.functional.silu(torch.bmm(ein, p["w_gate"])) \
+                    * torch.bmm(ein, p["w_up"])
+                return torch.bmm(h, p["w_down"])
+
+            eflat = torch.cat([experts().reshape(e * r.capacity, d),
+                               x.new_zeros((1, d))])
+            w = r.token_w.to(eflat.dtype)
+            pieces = {
+                "router": lambda: moe.route(cfg, p["router"], x),
+                "dispatch": lambda: moe._Dispatch.apply(x, r.row_token,
+                                                        r.token_dest),
+                "experts": experts,
+                "combine": lambda: moe._gather_rows_summed(
+                    eflat, r.token_dest, w),
+                "ffn": lambda: moe.moe_ffn(cfg, p, x[None]),
+            }
+            # a few calls each: every piece launches tens of kernels, and
+            # the queue behind the spin kernel holds about a thousand
+            ms = {k: timed(torch, fn, iters=4)[0]
+                  for k, fn in pieces.items()}
+        log("moe", costs=label, tokens=n, capacity=r.capacity,
+            device_ms_per_layer=json.dumps({k: round(v, 4)
+                                            for k, v in ms.items()}),
+            device_ms_per_step=json.dumps({k: round(v * cfg.n_layers, 3)
+                                           for k, v in ms.items()}))
+
+
+def moe_determinism(torch, dev, model, params) -> None:
+    """One MoE layer's forward and backward at the training shape (B=2,
+    S=512, bf16), twice: outputs, aux loss and every gradient equal bit for
+    bit (the dispatch and the combine are gathers summed in a fixed
+    order)."""
+    from repro_torch.models import moe
+    from repro_torch.models.transformer import _index
+
+    cfg = model.cfg
+    gen = torch.Generator(device=dev).manual_seed(6)
+    p0 = _index(params["segments"][0], 0)["p0"]["ffn"]
+    x0 = torch.randn(TRAIN_BATCH, TRAIN_SEQ, cfg.d_model, device=dev,
+                     generator=gen).to(torch.bfloat16)
+    wt = torch.randn(x0.shape, device=dev, generator=gen)
+    runs = []
+    for _ in range(2):
+        p = {k: v.detach().clone().requires_grad_(True) for k, v in p0.items()}
+        x = x0.clone().requires_grad_(True)
+        out, aux = moe.moe_ffn(cfg, p, x)
+        ((out.float() * wt).sum() + aux).backward()
+        runs.append([out.detach(), aux.detach(), x.grad,
+                     *(p[k].grad for k in sorted(p))])
+    same = all(torch.equal(a, b) for a, b in zip(*runs))
+    log("moe", check="one MoE layer's forward and backward twice",
+        tokens=TRAIN_BATCH * TRAIN_SEQ, bitwise_equal=same)
+    assert same
+
+
+def sched_session(torch, dev, kernels, model, params, phase, modes) -> None:
+    """The sched phase's trace through ``HyperOffloadSession.scheduler`` in
+    each session mode of ``modes`` (``continuous``: resident,
+    ``kv_offload``: pages through the pool), telemetry on. Holds what
+    ``sched_run`` holds, prefill and decoded tokens equal to the trace's,
+    and, between two modes, the same tokens and ``SchedStats`` but pages
+    parked."""
+    from repro_torch.api import HyperOffloadSession, OffloadConfig
+    from repro_torch.api.config import TelemetryConfig
+    from repro_torch.sched import poisson_trace
+
+    cfg = model.cfg
+    n_attn, _ = mixers(cfg)
+    trace = poisson_trace(vocab_size=cfg.vocab_size, **SCHED_TRACE)
+    runs = {}
+    for mode in modes:
+        conf = OffloadConfig(mode=mode, max_batch=BATCH, max_seq=MAX_SEQ,
+                             cache_dtype="bfloat16",
+                             telemetry=TelemetryConfig(
+                                 enable=True, ring_capacity=SESSION_RING))
+        with HyperOffloadSession(conf, device=dev) as sess:
+            runs[mode] = run = sched_run(
+                torch, dev, kernels, model, params, trace,
+                f"{phase}-session-{mode}", {}, n_attn, session=sess)
+        st = run["stats"]
+        assert st["prefill_tokens"] == sum(r.prompt_len for r in trace)
+        assert st["decoded_tokens"] == sum(r.max_new_tokens - 1
+                                           for r in trace)
+        assert (st["pages_parked"] > 0) == (mode == "kv_offload"), st
+    if len(runs) == 2:
+        a, b = runs.values()
+        assert a["tokens"] == b["tokens"], f"{phase}: tokens differ"
+        assert _same_work(a["stats"]) == _same_work(b["stats"])
+    log(phase, check="sched trace through the session", modes=list(modes),
+        tokens_equal=True, first_tokens=runs[modes[0]]["tokens"][0][:8])
+
+
+def phase_mla(torch, dev, kernels) -> None:
+    """minicpm3-4b (62 MLA layers) at full width and depth, served as in
+    phase 3 (MLA runs no kernel: plain PyTorch on every device), the share
+    of a decode step that the latent up-projection takes, and the sched
+    trace through the session with ``kv_offload`` (the 3-D latent leaves
+    parked and fetched through the pool)."""
+    metrics = {}
+    model, params, tokens = serve(torch, dev, kernels, MLA_ARCH, "mla",
+                                  metrics=metrics)
+    mla_upprojection(torch, dev, model, params, metrics)
+    sched_session(torch, dev, kernels, model, params, "mla", ("kv_offload",))
+    del model, params, tokens
+    torch.cuda.empty_cache()
+
+
+def mla_upprojection(torch, dev, model, params, metrics) -> None:
+    """Device ms of one layer's per-step up-projection of the whole latent
+    ring (``ckv @ wukv``, (B, C, r) x (r, H (dn + dv)), bf16) and its share
+    of the resident decode step."""
+    from repro_torch.models import attention as attn
+    from repro_torch.models.transformer import _index
+
+    cfg = model.cfg
+    p = _index(params["segments"][0], 0)["p0"]["mixer"]
+    gen = torch.Generator(device=dev).manual_seed(7)
+    ckv = torch.randn(BATCH, MAX_SEQ, cfg.mla.kv_lora_rank, device=dev,
+                      generator=gen).to(torch.bfloat16)
+    with torch.inference_mode():
+        ms, _ = timed(torch, lambda: attn._mla_expand(cfg, p, ckv))
+    step_ms = ms * cfg.n_layers
+    m = cfg.mla
+    log("mla", upprojection=f"B{BATCH}xC{MAX_SEQ}xr{m.kv_lora_rank}"
+        f"->H{cfg.n_heads}x{m.qk_nope_head_dim + m.v_head_dim}",
+        device_ms_per_layer=f"{ms:.4f}", device_ms_per_step=f"{step_ms:.3f}",
+        resident_decode_ms_per_step=f"{metrics['resident_decode_ms']:.2f}",
+        share_of_decode_step=f"{step_ms / metrics['resident_decode_ms']:.4f}")
+
+
+def phase_codeqwen(torch, dev, kernels) -> None:
+    """codeqwen1.5-7b (dense MHA, 32 heads of 128) at full width and depth,
+    served as in phase 3: flash at D=128, G=1 on every prefill, the ring
+    kernel on every decode step."""
+    model, params, tokens = serve(torch, dev, kernels, MHA_ARCH, "codeqwen")
+    del model, params, tokens
     torch.cuda.empty_cache()
 
 

@@ -52,6 +52,7 @@ session's device:
 
 from __future__ import annotations
 
+import weakref
 from typing import Any, Callable, Dict, List, Mapping, Optional
 
 import torch
@@ -152,16 +153,30 @@ class HyperOffloadSession:
         becomes a named collector, and ``stats()`` is the registry's
         ``collect()``. Registration order is the stats() key order."""
         reg = self.registry
-        reg.register_collector("mode", lambda: self.config.mode)
-        reg.register_collector("pool", lambda: self.pool.snapshot())
-        reg.register_collector("serve", self._collect_serve)
-        reg.register_collector("sched", self._collect_sched)
-        reg.register_collector("paged", self._collect_paged)
+        # the collectors reach the session through a weak reference: the
+        # registry is the session's own (and the schedulers' it hands
+        # out), so bound methods would make a reference cycle that keeps a
+        # dropped session, with its engines' weights and caches, alive
+        # until Python collects cycles
+        ref = weakref.ref(self)
+
+        def collector(fn: Callable[["HyperOffloadSession"], Any]):
+            return lambda: None if ref() is None else fn(ref())
+
+        reg.register_collector("mode", collector(lambda s: s.config.mode))
+        reg.register_collector("pool",
+                               collector(lambda s: s.pool.snapshot()))
+        reg.register_collector("serve",
+                               collector(HyperOffloadSession._collect_serve))
+        reg.register_collector("sched",
+                               collector(HyperOffloadSession._collect_sched))
+        reg.register_collector("paged",
+                               collector(HyperOffloadSession._collect_paged))
         reg.register_collector(
-            "prefix", lambda: None if self.prefix_cache is None
-            else self.prefix_cache.snapshot())
+            "prefix", collector(lambda s: None if s.prefix_cache is None
+                                else s.prefix_cache.snapshot()))
         reg.register_collector("plans_cached",
-                               lambda: len(self._plan_cache))
+                               collector(lambda s: len(s._plan_cache)))
 
     def _collect_serve(self) -> Dict[str, Any]:
         serve = {"engines": len(self._engines), "prefill_tokens": 0,

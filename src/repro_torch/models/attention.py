@@ -1,6 +1,13 @@
-"""GQA attention mixer: full-sequence (prefill), chunked prefill against
-an existing cache, and single-token decode, with sliding windows, logit
-softcap and RoPE.
+"""Attention mixers, GQA (sliding windows, logit softcap, RoPE) and MLA
+(multi-head latent attention): full-sequence (prefill), chunked prefill
+against an existing cache, and single-token decode.
+
+MLA caches hold the per-token latent ``ckv`` (B, C, kv_lora_rank) and the
+rotated key part ``krope`` (B, C, qk_rope_head_dim), 3-D leaves where
+GQA's ``k``/``v`` are 4-D, and every query up-projects the whole latent
+ring through ``wukv``, as the reference does. The reference computes MLA
+in plain XLA (no Pallas kernel), so the port's MLA is plain PyTorch on
+every device.
 
 KV caches for sliding-window layers are ring buffers of capacity
 ``min(window, max_seq)`` — token ``t`` lives in slot ``t % C``. Where the
@@ -16,7 +23,7 @@ import torch
 
 from repro_torch.configs.base import LayerSpec, ModelConfig
 from repro_torch.models import runtime
-from repro_torch.models.common import apply_rope, dense_init, softcap
+from repro_torch.models.common import apply_rope, dense_init, rmsnorm, softcap
 
 NEG_INF = -2.3819763e38
 
@@ -42,6 +49,34 @@ def init_attn_params(cfg: ModelConfig, spec: LayerSpec, dtype: torch.dtype,
     }
 
 
+def init_mla_params(cfg: ModelConfig, dtype: torch.dtype,
+                    device: torch.device, generator: torch.Generator,
+                    stack: Sequence[int] = ()) -> Dict[str, torch.Tensor]:
+    """MLA's projections; ``q_norm`` and ``kv_norm`` are fp32 whatever
+    ``dtype`` is, as in the reference."""
+    m = cfg.mla
+    d, h = cfg.d_model, cfg.n_heads
+    dn, dr, dv = m.qk_nope_head_dim, m.qk_rope_head_dim, m.v_head_dim
+    st, ax = tuple(stack), len(stack)
+
+    def w(*shape):
+        return dense_init(st + shape, dtype, device, generator, ax)
+
+    def norm(n):
+        return torch.zeros(st + (n,), dtype=torch.float32, device=device)
+
+    return {
+        "wdq": w(d, m.q_lora_rank),
+        "q_norm": norm(m.q_lora_rank),
+        "wuq": w(m.q_lora_rank, h * (dn + dr)),
+        "wdkv": w(d, m.kv_lora_rank),
+        "kv_norm": norm(m.kv_lora_rank),
+        "wkr": w(d, dr),
+        "wukv": w(m.kv_lora_rank, h * (dn + dv)),
+        "wo": w(h * dv, d),
+    }
+
+
 def attn_cache_len(cfg: ModelConfig, spec: LayerSpec, max_seq: int,
                    swa_override: Optional[int] = None) -> int:
     window = spec.window
@@ -57,7 +92,14 @@ def init_attn_cache(cfg: ModelConfig, spec: LayerSpec, batch: int,
                     swa_override: Optional[int] = None,
                     stack: Sequence[int] = ()) -> Dict[str, torch.Tensor]:
     c = attn_cache_len(cfg, spec, max_seq, swa_override)
-    shape = tuple(stack) + (batch, c, cfg.n_kv_heads, cfg.head_dim)
+    st = tuple(stack) + (batch, c)
+    if spec.mixer == "mla":
+        m = cfg.mla
+        return {"ckv": torch.zeros(st + (m.kv_lora_rank,), dtype=dtype,
+                                   device=device),
+                "krope": torch.zeros(st + (m.qk_rope_head_dim,), dtype=dtype,
+                                     device=device)}
+    shape = st + (cfg.n_kv_heads, cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
@@ -181,6 +223,8 @@ def attention_full(cfg: ModelConfig, spec: LayerSpec, p: Dict,
                    causal: bool = True,
                    swa_override: Optional[int] = None) -> torch.Tensor:
     """Self-attention over a full sequence. Returns (B,S,D)."""
+    if spec.mixer == "mla":
+        return _mla_full(cfg, p, x, positions)
     q, k, v = _project_qkv(cfg, p, x, positions)
     out = _attend_full(cfg, _window(spec, swa_override), q, k, v, causal,
                        x.dtype)
@@ -194,7 +238,13 @@ def attention_prefill(cfg: ModelConfig, spec: LayerSpec, p: Dict,
     """Full causal attention; also fills the layer KV cache in place.
     Tokens t ∈ [0, S) are written to ring slot t % C. K/V are projected
     once and reused for the cache (the reference projects them twice; the
-    values are the same). Returns (out, cache)."""
+    values are the same); so are MLA's latent and rotated key. Returns
+    (out, cache)."""
+    if spec.mixer == "mla":
+        out, ckv, kr = _mla_full(cfg, p, x, positions, with_latent=True)
+        _ring_write_seq(cache["ckv"], ckv.to(cache["ckv"].dtype))
+        _ring_write_seq(cache["krope"], kr.to(cache["krope"].dtype))
+        return out, cache
     q, k, v = _project_qkv(cfg, p, x, positions)
     out = _attend_full(cfg, _window(spec, swa_override), q, k, v, True,
                        x.dtype) @ p["wo"]
@@ -244,7 +294,11 @@ def attention_prefill_chunk(cfg: ModelConfig, spec: LayerSpec, p: Dict,
     nor written; their output rows are garbage the caller discards. Masks
     use the finite ``NEG_INF``. ``offset`` and ``valid_len`` are Python
     ints. The plain path runs on every device: the JAX package has no
-    Pallas kernel for this function either."""
+    Pallas kernel for this function either. An MLA layer writes first and
+    attends after (``_mla_prefill_chunk``)."""
+    if spec.mixer == "mla":
+        return _mla_prefill_chunk(cfg, p, x, offset, positions, valid_len,
+                                  cache)
     b, s, _ = x.shape
     hq, hd = cfg.n_heads, cfg.head_dim
     c = cache["k"].shape[1]
@@ -313,7 +367,10 @@ def attention_decode(cfg: ModelConfig, spec: LayerSpec, p: Dict,
     decodes). The cache is updated in place. Under ``"kernel"`` (a CUDA
     tensor) the attention goes through the ring-decode kernel for every
     form of ``pos``; a tensor ``pos`` reaches it on the device, never read
-    by the host."""
+    by the host. An MLA layer decodes in plain PyTorch (``_mla_decode``)
+    for every form of ``pos``."""
+    if spec.mixer == "mla":
+        return _mla_decode(cfg, p, x, pos, positions, cache)
     b, _, _ = x.shape
     hq, hd = cfg.n_heads, cfg.head_dim
     c = cache["k"].shape[1]
@@ -376,3 +433,128 @@ def _ring_write_token(buf: torch.Tensor, vals: torch.Tensor,
         rows = torch.arange(buf.shape[0], device=buf.device)
         buf[rows, torch.remainder(pos, c).long()] = vals[:, 0]
     return buf
+
+
+# ---------------------------------------------------------------------------
+# MLA (multi-head latent attention)
+# ---------------------------------------------------------------------------
+
+
+def _mla_query(cfg: ModelConfig, p: Dict, x: torch.Tensor,
+               positions: torch.Tensor
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The query's no-rope and rotated parts, (B,S,H,dn) and (B,S,H,dr)."""
+    m = cfg.mla
+    b, s, _ = x.shape
+    dn, dr = m.qk_nope_head_dim, m.qk_rope_head_dim
+    qlat = rmsnorm(x @ p["wdq"], p["q_norm"], cfg.norm_eps)
+    q = (qlat @ p["wuq"]).reshape(b, s, cfg.n_heads, dn + dr)
+    return q[..., :dn], apply_rope(q[..., dn:], positions, cfg.rope_theta)
+
+
+def _mla_latent(cfg: ModelConfig, p: Dict, x: torch.Tensor,
+                positions: torch.Tensor
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The tokens' latent (B,S,r) and rotated key part (B,S,dr): what the
+    cache holds."""
+    ckv = rmsnorm(x @ p["wdkv"], p["kv_norm"], cfg.norm_eps)
+    kr = apply_rope((x @ p["wkr"])[:, :, None, :], positions,
+                    cfg.rope_theta)[:, :, 0]
+    return ckv, kr
+
+
+def _mla_expand(cfg: ModelConfig, p: Dict, ckv: torch.Tensor
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Up-project a latent (B,T,r) to keys' no-rope part and values,
+    (B,T,H,dn) and (B,T,H,dv). A cache in another type than the weights
+    (bf16 under fp32 weights) is promoted first, as JAX's ``@`` does."""
+    m = cfg.mla
+    b, t, _ = ckv.shape
+    w = p["wukv"]
+    ckv = ckv.to(torch.promote_types(ckv.dtype, w.dtype))
+    kv = (ckv @ w.to(ckv.dtype)).reshape(
+        b, t, cfg.n_heads, m.qk_nope_head_dim + m.v_head_dim)
+    return kv[..., :m.qk_nope_head_dim], kv[..., m.qk_nope_head_dim:]
+
+
+def _mla_scores(cfg: ModelConfig, qn: torch.Tensor, qr: torch.Tensor,
+                kn: torch.Tensor, kr: torch.Tensor) -> torch.Tensor:
+    """(B,S,H,T) fp32 scores: the no-rope part per head plus the rotated
+    part shared by every head, scaled."""
+    m = cfg.mla
+    sc = torch.einsum("bshd,bthd->bsht", qn.float(), kn.float())
+    sc = sc + torch.einsum("bshd,btd->bsht", qr.float(), kr.float())
+    return sc * (m.qk_nope_head_dim + m.qk_rope_head_dim) ** -0.5
+
+
+def _mla_out(cfg: ModelConfig, p: Dict, probs: torch.Tensor,
+             v: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    b, s, h, _ = probs.shape
+    out = torch.einsum("bsht,bthd->bshd", probs, v.float())
+    return out.to(dtype).reshape(b, s, h * cfg.mla.v_head_dim) @ p["wo"]
+
+
+def _mla_full(cfg: ModelConfig, p: Dict, x: torch.Tensor,
+              positions: torch.Tensor, *, with_latent: bool = False):
+    """Causal MLA over a full sequence; above ``CHUNKED_ATTN_THRESHOLD``
+    one query chunk of ``CHUNK_Q`` at a time (the reference's scan).
+    Returns (B,S,D), and with ``with_latent`` also the latent and rotated
+    key the cache takes."""
+    s = x.shape[1]
+    qn, qr = _mla_query(cfg, p, x, positions)
+    ckv, kr = _mla_latent(cfg, p, x, positions)
+    kn, v = _mla_expand(cfg, p, ckv)
+    step = CHUNK_Q if s > CHUNKED_ATTN_THRESHOLD else s
+    outs = []
+    for q0 in range(0, s, step):
+        sc = _mla_scores(cfg, qn[:, q0:q0 + step], qr[:, q0:q0 + step], kn,
+                         kr)
+        mask = make_causal_mask(sc.shape[1], s, None, x.device, offset=q0)
+        outs.append(_mla_out(cfg, p, _masked_softmax(sc, mask), v, x.dtype))
+    out = outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
+    return (out, ckv, kr) if with_latent else out
+
+
+def _mla_prefill_chunk(cfg: ModelConfig, p: Dict, x: torch.Tensor,
+                       offset: int, positions: torch.Tensor, valid_len: int,
+                       cache: Dict) -> Tuple[torch.Tensor, Dict]:
+    """MLA chunk prefill: write the chunk's latent into the cache, then
+    attend every chunk query over the whole updated cache (the decode
+    path's expand-from-latent, for S queries). Write-then-attend is exact
+    because MLA caches are full-length (no sliding window), so a chunk
+    never overwrites history a query still needs."""
+    c = cache["ckv"].shape[1]
+    qn, qr = _mla_query(cfg, p, x, positions)
+    ckv_t, kr_t = _mla_latent(cfg, p, x, positions)
+    new_ckv = _ring_write_at(cache["ckv"], ckv_t, offset, valid_len)
+    new_kr = _ring_write_at(cache["krope"], kr_t, offset, valid_len)
+    kn, v = _mla_expand(cfg, p, new_ckv)
+    sc = _mla_scores(cfg, qn, qr, kn, new_kr)
+    # after the write, ring slot j holds token P - ((P - j) mod C) for the
+    # last written position P; causal: visible iff 0 <= t_j <= query pos
+    last = offset + valid_len - 1
+    dev = x.device
+    tj = last - torch.remainder(last - torch.arange(c, device=dev), c)
+    qi = offset + torch.arange(x.shape[1], device=dev)
+    mask = (tj[None, :] >= 0) & (tj[None, :] <= qi[:, None])      # (S, C)
+    probs = _masked_softmax(sc, mask[None, :, None, :])
+    return _mla_out(cfg, p, probs, v, x.dtype), cache
+
+
+def _mla_decode(cfg: ModelConfig, p: Dict, x: torch.Tensor, pos: Pos,
+                positions: torch.Tensor, cache: Dict
+                ) -> Tuple[torch.Tensor, Dict]:
+    """One token per row against the latent ring, written in place; ``pos``
+    an int, a 0-dim or a (B,) tensor as in ``attention_decode``. Every step
+    up-projects the whole ring (``ckv @ wukv``), the reference's
+    algorithm."""
+    c = cache["ckv"].shape[1]
+    qn, qr = _mla_query(cfg, p, x, positions)
+    ckv_t, kr_t = _mla_latent(cfg, p, x, positions)
+    new_ckv = _ring_write_token(cache["ckv"], ckv_t, pos)
+    new_kr = _ring_write_token(cache["krope"], kr_t, pos)
+    kn, v = _mla_expand(cfg, p, new_ckv)
+    sc = _apply_valid_mask(_mla_scores(cfg, qn, qr, kn, new_kr),
+                           _ring_valid_mask(pos, c, x.device))
+    probs = torch.softmax(sc, dim=-1)
+    return _mla_out(cfg, p, probs, v, x.dtype), cache

@@ -1,5 +1,6 @@
 """Layer (block) application: pre-norm residual structure over a mixer
-(GQA attention or Mamba2) and an FFN, with gemma2-style optional
+(GQA attention, MLA or Mamba2) and an FFN (SwiGLU, GELU or MoE, whose aux
+loss the forward and prefill paths return), with gemma2-style optional
 post-sublayer norms. One code path per execution mode (forward, prefill,
 decode) so caches stay explicit."""
 
@@ -12,16 +13,18 @@ import torch
 from repro_torch.configs.base import LayerSpec, ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import mlp as mlp_mod
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import remat
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.common import apply_norm, norm_params
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """The port runs decoders whose layers are GQA attention with a SwiGLU
-    or GELU FFN (or none), or Mamba2 with no FFN (mamba2, the zamba2
-    hybrid); MoE, MLA, cross-attention, encoders and vision frontends come
-    in later slices."""
+    """The port runs decoder-only stacks: GQA or MLA attention with a
+    SwiGLU, GELU or MoE FFN (or none), and Mamba2 with no FFN (mamba2, the
+    zamba2 hybrid), under RoPE or no position encoding. It still refuses
+    encoders and frontends (whisper's audio encoder, qwen2-vl's vision
+    embeds), cross-attention, and M-RoPE: they come in later slices."""
     bad = []
     if cfg.encoder is not None or cfg.frontend != "none":
         bad.append("encoder/frontend")
@@ -29,17 +32,21 @@ def check_supported(cfg: ModelConfig) -> None:
         bad.append(f"rope_mode={cfg.rope_mode}")
     for seg in cfg.segments:
         for spec in seg.pattern:
+            if spec.cross_attn:
+                bad.append("cross_attn")
             if spec.mixer == "mamba2":
                 if spec.ffn != "none":
                     bad.append(f"mixer=mamba2 ffn={spec.ffn}")
                 continue
-            if spec.mixer != "attn" or spec.cross_attn:
-                bad.append(f"mixer={spec.mixer} cross_attn={spec.cross_attn}")
-            if spec.ffn not in ("swiglu", "gelu", "none"):
+            if spec.mixer not in ("attn", "mla"):
+                bad.append(f"mixer={spec.mixer}")
+            if spec.ffn not in ("swiglu", "gelu", "moe", "none"):
                 bad.append(f"ffn={spec.ffn}")
     if bad:
         raise NotImplementedError(
-            f"{cfg.name}: not in the PyTorch port yet: {sorted(set(bad))}")
+            f"{cfg.name}: not in the PyTorch port yet: {sorted(set(bad))} "
+            f"(encoders/frontends, cross-attention and M-RoPE come in "
+            f"later slices)")
 
 
 # ---------------------------------------------------------------------------
@@ -52,6 +59,8 @@ def init_layer_params(cfg: ModelConfig, spec: LayerSpec, dtype: torch.dtype,
                       stack: Sequence[int] = ()) -> Dict:
     if spec.mixer == "mamba2":
         mixer = ssm_mod.init_mamba_params(cfg, dtype, device, generator, stack)
+    elif spec.mixer == "mla":
+        mixer = attn.init_mla_params(cfg, dtype, device, generator, stack)
     else:
         mixer = attn.init_attn_params(cfg, spec, dtype, device, generator,
                                       stack)
@@ -60,7 +69,10 @@ def init_layer_params(cfg: ModelConfig, spec: LayerSpec, dtype: torch.dtype,
         p["post_norm"] = norm_params(cfg, device, stack)
     if spec.ffn != "none":
         p["ffn_norm"] = norm_params(cfg, device, stack)
-        if spec.ffn == "gelu":
+        if spec.ffn == "moe":
+            p["ffn"] = moe_mod.init_moe_params(cfg, dtype, device, generator,
+                                               stack)
+        elif spec.ffn == "gelu":
             p["ffn"] = mlp_mod.init_gelu_params(cfg, dtype, device, generator,
                                                 stack)
         else:
@@ -86,30 +98,37 @@ def init_layer_cache(cfg: ModelConfig, spec: LayerSpec, batch: int,
 # ---------------------------------------------------------------------------
 
 
-def _ffn_out(cfg: ModelConfig, spec: LayerSpec, p: Dict,
-             x: torch.Tensor) -> torch.Tensor:
+def _zero_aux(x: torch.Tensor) -> torch.Tensor:
+    return torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def _ffn_out(cfg: ModelConfig, spec: LayerSpec, p: Dict, x: torch.Tensor
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The FFN sublayer's output (after its post-norm), before the
-    residual add."""
+    residual add, and its aux loss (an MoE FFN's; zero for a dense one)."""
     h = apply_norm(cfg, p["ffn_norm"], x)
-    h = mlp_mod.gelu_mlp(p["ffn"], h) if spec.ffn == "gelu" \
-        else mlp_mod.swiglu(p["ffn"], h)
+    if spec.ffn == "moe":
+        h, aux = moe_mod.moe_ffn(cfg, p["ffn"], h)
+    else:
+        aux = _zero_aux(x)
+        h = mlp_mod.gelu_mlp(p["ffn"], h) if spec.ffn == "gelu" \
+            else mlp_mod.swiglu(p["ffn"], h)
     if spec.post_norms:
         h = apply_norm(cfg, p["post_ffn_norm"], h)
-    return h
-
-
-def _ffn(cfg: ModelConfig, spec: LayerSpec, p: Dict,
-         x: torch.Tensor) -> torch.Tensor:
-    if spec.ffn == "none":
-        return x
-    return x + _ffn_out(cfg, spec, p, x)
+    return h, aux
 
 
 def _post_mixer(cfg: ModelConfig, spec: LayerSpec, p: Dict, x: torch.Tensor,
-                h: torch.Tensor) -> torch.Tensor:
+                h: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The rest of a layer after its mixer's output ``h``: the mixer's
+    post-norm, the residual add and the FFN. Returns (x, aux_loss)."""
     if spec.post_norms:
         h = apply_norm(cfg, p["post_norm"], h)
-    return _ffn(cfg, spec, p, x + h)
+    x = x + h
+    if spec.ffn == "none":
+        return x, _zero_aux(x)
+    h, aux = _ffn_out(cfg, spec, p, x)
+    return x + h, aux
 
 
 def apply_layer(cfg: ModelConfig, spec: LayerSpec, p: Dict, x: torch.Tensor,
@@ -131,15 +150,16 @@ def apply_layer(cfg: ModelConfig, spec: LayerSpec, p: Dict, x: torch.Tensor,
             h = apply_norm(cfg, p["post_norm"], h)
         return h
 
-    def ffn(p: Dict, x: torch.Tensor,
-            h: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    def ffn(p: Dict, x: torch.Tensor, h: torch.Tensor
+            ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         x = x + h
-        return x, _ffn_out(cfg, spec, p, x)
+        h, aux = _ffn_out(cfg, spec, p, x)
+        return h, x, aux
 
     h = remat.sublayer("attn_out", mixer, p, x)
+    aux = _zero_aux(x)
     if spec.ffn != "none":
-        x, h = remat.sublayer("mlp_out", ffn, p, x, h)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        h, x, aux = remat.sublayer("mlp_out", ffn, p, x, h)
     return remat.tag(x + h, "resid"), aux
 
 
@@ -155,8 +175,8 @@ def apply_layer_prefill(cfg: ModelConfig, spec: LayerSpec, p: Dict,
     else:
         h, cache = attn.attention_prefill(cfg, spec, p["mixer"], h, positions,
                                           cache, swa_override=swa_override)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    return _post_mixer(cfg, spec, p, x, h), aux, cache
+    x, aux = _post_mixer(cfg, spec, p, x, h)
+    return x, aux, cache
 
 
 def apply_layer_prefill_chunk(cfg: ModelConfig, spec: LayerSpec, p: Dict,
@@ -178,8 +198,8 @@ def apply_layer_prefill_chunk(cfg: ModelConfig, spec: LayerSpec, p: Dict,
     h, cache = attn.attention_prefill_chunk(
         cfg, spec, p["mixer"], h, offset, positions, valid_len, cache,
         swa_override=swa_override)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    return _post_mixer(cfg, spec, p, x, h), aux, cache
+    x, aux = _post_mixer(cfg, spec, p, x, h)
+    return x, aux, cache
 
 
 def apply_layer_decode(cfg: ModelConfig, spec: LayerSpec, p: Dict,
@@ -194,4 +214,5 @@ def apply_layer_decode(cfg: ModelConfig, spec: LayerSpec, p: Dict,
         h, cache = attn.attention_decode(cfg, spec, p["mixer"], h, pos,
                                          positions, cache,
                                          swa_override=swa_override)
-    return _post_mixer(cfg, spec, p, x, h), cache
+    x, _ = _post_mixer(cfg, spec, p, x, h)   # decode drops the aux loss
+    return x, cache

@@ -8,7 +8,7 @@ scope each tag point is the plain computation. A remat policy
 (``repro_torch.offload.policies``) that acts on names opens a scope for
 one forward; the scope then sees every tag point of it:
 ``sublayer(name, fn, p, *acts)`` runs ``fn(p, *acts)``, whose output (the
-last one, when it returns a tuple) is the value ``name``, and
+first one, when it returns a tuple) is the value ``name``, and
 ``tag(x, name)`` names a value computed in place.
 """
 

@@ -22,13 +22,14 @@ A policy's ``bind()`` starts one forward and returns its runner,
 The offload policy cuts each layer at its tag points (``models.remat``)
 into stages: the mixer (input: the layer's input, output ``attn_out``) and
 the FFN (inputs: the layer's input and ``attn_out``, whose sum it rebuilds;
-output ``mlp_out``). A stage runs without keeping anything; each tagged
-value is copied to host memory the moment it is made (on CUDA: into pinned
-memory, on a copy stream, after its producer). In the backward each stage
-fetches its tagged inputs (on a second copy stream, one stage ahead of the
-backward's use), recomputes itself from them and differentiates. A stage
-input that carries no parked name (the first layer's input) stays on the
-device. On the CPU, the park is a copy into a CPU tensor. On CUDA, a pin
+outputs ``mlp_out``, the sum and the aux loss, an MoE FFN's gradient
+taken in with the others). A stage runs without keeping anything; each
+tagged value is copied to host memory the moment it is made (on CUDA:
+into pinned memory, on a copy stream, after its producer). In the backward
+each stage fetches its tagged inputs (on a second copy stream, one stage
+ahead of the backward's use), recomputes itself from them and
+differentiates. A stage input that carries no parked name (the first
+layer's input) stays on the device. On the CPU, the park is a copy into a CPU tensor. On CUDA, a pin
 that fails raises: nothing falls back to pageable memory or to keeping the
 value on the device.
 """
@@ -210,7 +211,7 @@ class _OffloadScope:
         self.stages.append(handles)
         out = _Stage.apply(self, index, _under_forward_impl(fn), rebuild,
                            len(acts), *acts, *leaves)
-        self.tag(out[-1] if isinstance(out, tuple) else out, name)
+        self.tag(out[0] if isinstance(out, tuple) else out, name)
         return out
 
     # -- backward --------------------------------------------------------
@@ -296,7 +297,10 @@ class _Stage(torch.autograd.Function):
         with torch.enable_grad():
             out = ctx.fn(ctx.rebuild(leaves), *acts)
         outs = out if isinstance(out, tuple) else (out,)
-        pairs = [(o, g) for o, g in zip(outs, grads) if g is not None]
+        # an output the recompute made without a graph (a dense FFN's zero
+        # aux loss) has no gradient to pass on
+        pairs = [(o, g) for o, g in zip(outs, grads)
+                 if g is not None and o.requires_grad]
         wrt = acts + [t for t in leaves if t.requires_grad]
         got = iter(torch.autograd.grad([o for o, _ in pairs], wrt,
                                        [g for _, g in pairs],

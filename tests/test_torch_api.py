@@ -361,6 +361,38 @@ def test_session_shares_one_pool_and_merges_stats(model_and_params):
     session.close()         # idempotent
 
 
+def test_a_closed_session_and_what_it_handed_out_die_without_the_collector(
+        model_and_params):
+    """The registry's collectors hold the session weakly: once closed and
+    dropped, the session, its engine, scheduler (which shares the
+    session's registry under telemetry) and paged cache are freed by
+    reference counting alone, with the collector off."""
+    import gc
+    import weakref
+    model, params = model_and_params
+    gc.collect()
+    gc.disable()
+    try:
+        from repro_torch.api.config import TelemetryConfig
+        session = _session(OffloadConfig(
+            mode="kv_offload", max_seq=MAX_SEQ, max_batch=2,
+            telemetry=TelemetryConfig(enable=True)))
+        engine = session.serve_engine(model, params)
+        engine.generate({"tokens": torch.ones((1, 4), dtype=torch.int32)}, 3)
+        sched = session.scheduler(model, params)
+        sched.run([Request(tokens=np.ones((4,), np.int32), max_new_tokens=4,
+                           seed=0)])
+        paged = session.paged_kv(batch=1, n_kv_heads=CFG.n_kv_heads,
+                                 head_dim=CFG.head_dim)
+        assert session.stats()["serve"]["engines"] == 1
+        refs = [weakref.ref(o) for o in (session, engine, sched, paged)]
+        session.close()
+        del session, engine, sched, paged
+        assert [r() is None for r in refs] == [True] * 4
+    finally:
+        gc.enable()
+
+
 def test_session_plan_cache_is_shared(model_and_params):
     model, params = model_and_params
     cfg = OffloadConfig(mode="kv_offload", max_seq=MAX_SEQ, max_batch=2)

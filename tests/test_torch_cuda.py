@@ -696,3 +696,121 @@ def test_train_step_on_card_launches_no_kernel(cuda_device):
         losses.append(float(m["loss"]))
     assert dict(tops.launch_counts()) == before
     assert losses[-1] < losses[0]
+
+
+# ---------------------------------------------------------------------------
+# MoE (granite) and the new head shapes
+# ---------------------------------------------------------------------------
+
+#: (label, q heads, kv heads, head dim) of granite-moe-3b-a800m (G = 3) and
+#: codeqwen1.5-7b (MHA at 128)
+NEW_HEADS = [("granite", 24, 8, 64), ("codeqwen", 32, 32, 128)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("label,hq,hkv,d", NEW_HEADS)
+def test_kernels_accept_granite_and_codeqwen_heads(cuda_device, label, hq,
+                                                   hkv, d, dtype):
+    """Flash (a 512-token prefill), the ring kernel at a scalar and a (B,)
+    pos over a 576-slot ring, and the paged kernel (16 pages + a tail) at
+    the new paths' heads, each against its plain version."""
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    tol = CUDA_TOL[dtype]
+
+    def rnd(*shape):
+        return torch.randn(*shape, device=cuda_device, generator=g).to(dtype)
+
+    b, s, c, scale = 4, 512, 576, d ** -0.5
+    q, k, v = rnd(b, hq, s, d), rnd(b, hkv, s, d), rnd(b, hkv, s, d)
+    torch.testing.assert_close(
+        flash_attention_cuda(q, k, v, scale=scale).float(),
+        tref.flash_attention_ref(q, k, v, scale=scale).float(), atol=tol,
+        rtol=tol)
+    q, k, v = rnd(b, hq, d), rnd(b, c, hkv, d), rnd(b, c, hkv, d)
+    rows = torch.tensor([520, 37, 0, 575], dtype=torch.int32,
+                        device=cuda_device)
+    for pos in (520, rows):
+        torch.testing.assert_close(
+            decode_attention_cuda(q, k, v, pos, scale=scale).float(),
+            tref.decode_attention_ref(q, k.transpose(1, 2), v.transpose(1, 2),
+                                      pos, scale=scale).float(),
+            atol=tol, rtol=tol)
+    args = (rnd(b, hq, d), rnd(20, b, 32, hkv, d), rnd(20, b, 32, hkv, d),
+            torch.arange(16, dtype=torch.int32, device=cuda_device),
+            rnd(b, 32, hkv, d), rnd(b, 32, hkv, d), 19)
+    torch.testing.assert_close(
+        paged_decode_attention_cuda(*args, scale=scale).float(),
+        tref.paged_decode_attention_ref(*args, scale=scale).float(),
+        atol=tol, rtol=tol)
+
+
+def _granite_model(cuda_device, layers=2):
+    """granite-moe-3b-a800m's routing at full width (d_model 1536, 40
+    experts, top-8, d_ff_expert 512) over ``layers`` layers, bf16."""
+    import dataclasses
+    from repro_torch.models.model import build_model
+    cfg = REGISTRY["granite-moe-3b-a800m"]
+    cfg = dataclasses.replace(cfg, vocab_size=512, segments=tuple(
+        dataclasses.replace(s, repeats=layers) for s in cfg.segments))
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device=cuda_device).manual_seed(0),
+                        torch.bfloat16, cuda_device)
+    return model, params
+
+
+@pytest.mark.cuda
+def test_moe_dispatch_and_combine_are_bitwise_deterministic(cuda_device):
+    """One granite MoE layer at 1024 tokens, forward and backward twice:
+    output, aux loss and every gradient equal bit for bit (the dispatch
+    and the combine are gathers added in a fixed order, never atomics)."""
+    from repro_torch.models import moe
+    from repro_torch.models.transformer import _index
+    model, params = _granite_model(cuda_device, layers=1)
+    p0 = _index(params["segments"][0], 0)["p0"]["ffn"]
+    g = torch.Generator(device=cuda_device).manual_seed(4)
+    x0 = torch.randn(2, 512, model.cfg.d_model, device=cuda_device,
+                     generator=g).to(torch.bfloat16)
+    w = torch.randn(x0.shape, device=cuda_device, generator=g)
+    runs = []
+    for _ in range(2):
+        p = {k: t.detach().clone().requires_grad_(True) for k, t in p0.items()}
+        x = x0.clone().requires_grad_(True)
+        out, aux = moe.moe_ffn(model.cfg, p, x)
+        ((out.float() * w).sum() + aux).backward()
+        runs.append([out, aux, x.grad, *(p[k].grad for k in sorted(p))])
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+    assert p0["router"].dtype == torch.float32
+
+
+@pytest.mark.cuda
+def test_granite_training_losses_equal_across_memory_modes(cuda_device):
+    """Three train steps of a two-layer full-width granite in ``none`` and
+    in ``offload`` with the moments offloaded: losses and parameters equal
+    bit for bit, and no kernel counts a launch."""
+    from repro_torch.optim.adamw import tree_items
+    from repro_torch.training import TrainStepConfig, init_train_state
+    from repro_torch.training import make_train_step
+    model, _ = _granite_model(cuda_device)
+    toks = torch.randint(0, model.cfg.vocab_size, (2, 257),
+                         device=cuda_device, generator=torch.Generator(
+                             device=cuda_device).manual_seed(1))
+    batch = {"tokens": toks[:, :-1].int(), "targets": toks[:, 1:].int()}
+    before = dict(tops.launch_counts())
+    out = []
+    for remat, opt in (("none", False), ("offload", True)):
+        ts = TrainStepConfig(remat=remat, offload_opt_state=opt,
+                             peak_lr=1e-3, warmup=1)
+        params, state = init_train_state(
+            model, torch.Generator(device=cuda_device).manual_seed(0),
+            torch.bfloat16, ts, cuda_device)
+        step = make_train_step(model, ts)
+        losses = []
+        for _ in range(3):
+            params, state, m = step(params, state, batch)
+            losses.append(float(m["loss"]))
+        out.append((losses, [x for _, x in tree_items(params)]))
+    assert out[0][0] == out[1][0]
+    assert out[0][0][-1] < out[0][0][0]
+    assert all(torch.equal(a, b) for a, b in zip(out[0][1], out[1][1]))
+    assert dict(tops.launch_counts()) == before

@@ -53,7 +53,11 @@ def _configs(name):
                 "gemma2": ("gemma2-9b", None),
                 "phi3-gqa": ("phi3-mini-3.8b", 2),
                 "mamba2": ("mamba2-370m", None),
-                "zamba2": ("zamba2-7b", None)}[name]
+                "zamba2": ("zamba2-7b", None),
+                "codeqwen": ("codeqwen1.5-7b", None),
+                "granite": ("granite-moe-3b-a800m", None),
+                "mixtral": ("mixtral-8x22b", None),
+                "minicpm3": ("minicpm3-4b", None)}[name]
     jc, tc = JAX_REGISTRY[arch].reduced(), TORCH_REGISTRY[arch].reduced()
     if kv is not None:
         jc = dataclasses.replace(jc, n_kv_heads=kv)
@@ -62,7 +66,7 @@ def _configs(name):
 
 
 CONFIGS = ["phi3", "gemma2", "phi3-gqa", "gemma2-windowed", "mamba2",
-           "zamba2"]
+           "zamba2", "codeqwen", "granite", "mixtral", "minicpm3"]
 
 
 def _pair(name, seed=0):
@@ -304,6 +308,21 @@ def test_prefill_chunk_matches_jax(name, chunk):
     wraps its 6-slot ring inside chunks of 4 and holds only the last 6 of a
     chunk of 16 or 32. The cache left at the end equals a whole-prompt
     ``prefill``'s."""
+    _chunked_prefill_against_jax(name, chunk)
+
+
+@pytest.mark.parametrize("chunk", [4, 16])
+@pytest.mark.parametrize("name", ["codeqwen", "granite", "mixtral",
+                                  "minicpm3"])
+def test_prefill_chunk_of_moe_mla_and_mha_matches_jax(name, chunk):
+    """The same against JAX for dense MHA (codeqwen), MoE (granite,
+    mixtral; the reduced configs route losslessly, so chunked and
+    whole-prompt prefill agree) and MLA (minicpm3, which writes a chunk's
+    latent before attending), at two chunk sizes."""
+    _chunked_prefill_against_jax(name, chunk)
+
+
+def _chunked_prefill_against_jax(name, chunk):
     jm, jp, tm, tp = _pair(name)
     prompt, max_seq = 27, 32
     toks = _tokens(tm.cfg, 1, prompt, seed=12)

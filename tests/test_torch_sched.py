@@ -284,6 +284,33 @@ def _statuses(states):
 
 @pytest.mark.parametrize("mode", sorted(MODES))
 def test_scheduler_matches_the_reference_step_by_step(pair, mode):
+    _lockstep(pair, mode)
+
+
+#: MoE (granite) and MLA (minicpm3, whose latent cache leaves are 3-D)
+MOE_MLA_ARCHS = {"granite": "granite-moe-3b-a800m", "minicpm3": "minicpm3-4b"}
+
+
+@pytest.fixture(scope="module", params=sorted(MOE_MLA_ARCHS))
+def moe_mla_pair(request):
+    arch = MOE_MLA_ARCHS[request.param]
+    jm = jax_build_model(JAX_REGISTRY[arch].reduced())
+    tm = torch_build_model(TORCH_REGISTRY[arch].reduced())
+    jp = jm.init(jax.random.key(0))
+    return jm, jp, tm, params_from_numpy(jax.tree.map(np.asarray, jp), CPU)
+
+
+@pytest.mark.parametrize("mode", ["resident", "kv_offload", "chunk4",
+                                  "chunk4-kv_offload"])
+def test_moe_and_mla_scheduler_matches_the_reference_step_by_step(
+        moe_mla_pair, mode):
+    """The lockstep harness over MoE and MLA decoders: resident,
+    ``kv_offload`` (MLA's latent leaves paged through the pool) and
+    chunked."""
+    _lockstep(moe_mla_pair, mode)
+
+
+def _lockstep(pair, mode):
     jm, jp, tm, tp = pair
     jpool, tpool = _pools(mode, jm, tm)
     kw = dict(max_batch=2, max_seq=MAX_SEQ, **MODES[mode])

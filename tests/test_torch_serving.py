@@ -146,6 +146,44 @@ def test_hybrid_serving_offload_kv_matches_jax_tokens_and_pool_traffic():
     jpool.close()
 
 
+@pytest.mark.parametrize("arch", ["granite-moe-3b-a800m", "minicpm3-4b"])
+def test_moe_and_mla_serving_offload_kv_matches_jax(arch):
+    """MoE (granite) and MLA (minicpm3, whose cache is the 3-D latent
+    ``ckv`` and ``krope`` leaves) through both engines, resident and
+    ``offload_kv`` with a bf16 cache: tokens equal, and the round trip's
+    pool counts and bytes equal the JAX engine's."""
+    b, s0, new, max_seq = 2, 12, 6, 20
+    jcfg, tcfg = JAX_REGISTRY[arch].reduced(), TORCH_REGISTRY[arch].reduced()
+    jm, tm = jax_build_model(jcfg), torch_build_model(tcfg)
+    jp = jm.init(jax.random.key(0))
+    tp = params_from_numpy(jax.tree.map(np.asarray, jp), CPU)
+    toks = np.random.default_rng(2).integers(0, tcfg.vocab_size, (b, s0),
+                                             dtype=np.int32)
+    jpool, tpool = jax_default_pool(), default_pool(device="cpu")
+    joff_engine = JaxServeEngine(jm, jp, max_seq=max_seq,
+                                 cache_dtype=jnp.bfloat16, offload_kv=True,
+                                 pool=jpool)
+    joff = joff_engine.generate({"tokens": jnp.asarray(toks)}, new)
+    res = ServeEngine(tm, tp, max_seq=max_seq,
+                      cache_dtype=torch.bfloat16).generate(
+        {"tokens": torch.from_numpy(toks)}, new)
+    off_engine = ServeEngine(tm, tp, max_seq=max_seq,
+                             cache_dtype=torch.bfloat16, offload_kv=True,
+                             pool=tpool)
+    off = off_engine.generate({"tokens": torch.from_numpy(toks)}, new)
+    np.testing.assert_array_equal(res.numpy(), np.asarray(joff))
+    assert torch.equal(res, off)
+    assert _pool_counts(off_engine.pool_stats()) == \
+        _pool_counts(joff_engine.pool_stats())
+    leaves = [t for seg in tm.init_cache(b, max_seq, torch.bfloat16,
+                                         device=CPU)["segments"]
+              for layer in seg.values() for t in layer.values()]
+    assert {t.dim() for t in leaves} == ({4} if arch.startswith("minicpm")
+                                         else {5})
+    tpool.close()
+    jpool.close()
+
+
 def test_offload_kv_frees_each_steps_cache_without_the_collector():
     """Every round trip replaces the cache; the old leaves must go as soon
     as nothing uses them, not when the garbage collector next runs (on the

@@ -54,7 +54,8 @@ from repro_torch.pool.backend import is_host_resident
 from repro_torch.training import TrainStepConfig, make_train_step
 
 CPU = "cpu"
-ARCHS = ["phi3-mini-3.8b", "gemma2-9b", "mamba2-370m"]
+ARCHS = ["phi3-mini-3.8b", "gemma2-9b", "mamba2-370m",
+         "granite-moe-3b-a800m", "minicpm3-4b"]
 STEPS, SEQ, BATCH = 8, 16, 4
 HP = dict(peak_lr=1e-3, warmup=2)
 
@@ -246,6 +247,31 @@ def test_training_matches_jax_resident(phi3, jax_resident, port_none, remat,
                in zip(tree_items(params), tree_items(port_none[1])))
     assert all(torch.equal(a, b) for (_, a), (_, b)
                in zip(tree_items(state), tree_items(port_none[2])))
+
+
+@pytest.mark.parametrize("arch", ["granite-moe-3b-a800m", "minicpm3-4b"])
+def test_moe_and_mla_training_matches_jax_resident(arch):
+    """8 steps of MoE (granite, the aux loss in the loss) and MLA
+    (minicpm3) training against the JAX resident run, within the
+    tolerances above; activation offload with the moments offloaded
+    equals ``none`` bit for bit."""
+    jm = jax_build_model(two_layers(JAX_REGISTRY[arch].reduced()))
+    tm = build_model(two_layers(REGISTRY[arch].reduced()))
+    jp = jm.init(jax.random.key(0))
+    data = JaxTokens(jm.cfg.vocab_size, seq_len=SEQ, global_batch=BATCH)
+    batches = [data.batch(i) for i in range(STEPS)]
+    npp = jax.tree.map(np.asarray, jp)
+    jl, jparams = _jax_run(jm, jp, batches)
+    tl, tparams, tstate, _ = _port_run(tm, npp, batches)
+    np.testing.assert_allclose(tl, jl, rtol=1e-4)
+    _assert_params_close(jparams, tparams, HP["peak_lr"])
+    ol, oparams, ostate, _ = _port_run(tm, npp, batches, remat="offload",
+                                       offload_opt_state=True)
+    assert ol == tl
+    assert all(torch.equal(a, b) for (_, a), (_, b)
+               in zip(tree_items(oparams), tree_items(tparams)))
+    assert all(torch.equal(a, b) for (_, a), (_, b)
+               in zip(tree_items(ostate), tree_items(tstate)))
 
 
 def test_grad_accum_matches_jax(phi3):
