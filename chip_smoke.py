@@ -12,8 +12,11 @@ non-zero exit):
    source, all at once, sm_90a).
 2. kernels — each kernel against its plain PyTorch version on the card:
    flash and ring decode at phi3's, zamba2's (head dim 112), gemma2's,
-   granite-moe's (24 q / 8 kv heads of 64) and codeqwen's (32 heads of
-   128) shapes, paged decode at phi3's, gemma2's and granite's, in bf16
+   granite-moe's (24 q / 8 kv heads of 64), codeqwen's (32 heads of
+   128), whisper's (16 heads of 64; flash over its 64-token prompt, the
+   ring over 448 slots) and qwen2-vl's (64 q / 8 kv heads of 128) shapes,
+   paged decode at phi3's, gemma2's, granite's, whisper's and qwen2-vl's
+   heads, in bf16
    (tolerance 2e-2)
    and fp32 (2e-5, TF32 off); the ring kernel also at the edges of its
    split-K (all slots masked, splits with no valid slot, a ragged last
@@ -25,8 +28,10 @@ non-zero exit):
    64-128: wgmma; bf16 B/C in the SSD scan: mma_tf32, on tensor cores),
    the paged case its split-K cut (split, splits, blocks).
    Kernel, plain and library times at each kernel's main shape (flash also
-   at head dim 112; flash, ring and paged decode also at granite's and
-   codeqwen's heads, under ``"shapes"`` in the kernels line): device time
+   at head dim 112; flash, ring and paged decode also at granite's,
+   codeqwen's, whisper's and qwen2-vl's heads, under ``"shapes"`` in the
+   kernels line, the decode kernels with their split and shared memory a
+   block): device time
    (launches queued behind a spin kernel, so host overhead between them is
    not counted) and time per call.
 3. serve   — phi3-mini-3.8b at full width and depth in bf16, weights drawn
@@ -138,13 +143,32 @@ non-zero exit):
    sched trace through the session with ``kv_offload``.
 13. codeqwen — codeqwen1.5-7b (dense MHA, 32 heads of 128) at full width
    and depth, served as in phase 3.
+14. whisper — whisper-medium (24 encoder + 24 decoder layers, MHA 16 x 64,
+   1500 frames of the audio frontend stub) at full width and depth,
+   served as in phase 3 under its own traffic (a 64-token decoder prompt,
+   128 greedy tokens, max_seq 448): flash on every decoder prefill, the
+   ring kernel on every decode step, the encoder and cross-attention plain
+   (as in the reference), the cross leaves in the ``offload_kv`` round
+   trip; the encoder's time and its attention's device time; the logits
+   moving with the encoder's input; the scheduler's refusal; four training
+   steps (B=2, S=448) in ``none`` and ``offload`` + ``offload_opt_state``,
+   bit for bit, the encoder's parameters included.
+15. vlm     — qwen2-vl-72b at full width, 8 of its 80 layers (the whole
+   model does not fit one card), served as in phase 3 with a 16 x 16 grid
+   of vision embeddings in front of the prompt at M-RoPE positions whose
+   planes differ: flash and the ring kernel at G=8, D=128; the logits
+   moving with the vision embeddings and with the planes; the sched trace
+   (text only) through the session in ``continuous`` and ``kv_offload``;
+   four training steps at 2 layers (B=1, S=512, vision inputs) in
+   ``offload`` + ``offload_opt_state``.
 
 Output: the card's name and power limit, one line per phase (and one with
 its seconds), the total
 wall time, a JSON line ``{"kernels": [...]}`` and, last, ``{"ok": true,
 "device": {...}}``. The
-launch counts in the kernels line are the sums over phases 3 to 13 of each
-phase's own count (the train phase's and the training of phase 11 are 0):
+launch counts in the kernels line are the sums over phases 3 to 15 of each
+phase's own count (the train phase's and the training of phases 11, 14
+and 15 are 0):
 every count is set to 0 just before a phase drives the port and read just
 after. Without a CUDA device, or without the port
 beside this file, it prints no result and exits with 2.
@@ -225,6 +249,26 @@ MOE_TRAIN_MODES = (("none", False), ("offload", True))
 # head shapes of the new paths, held in the kernels phase: (label, heads,
 # kv heads, head dim)
 NEW_HEADS = (("granite", 24, 8, 64), ("codeqwen", 32, 32, 128))
+# the whisper and vlm phases: whisper-medium at full width and depth (24
+# encoder + 24 decoder layers, MHA 16 x 64, 1500 encoder frames) under a
+# 64-token decoder prompt (earlier text, as whisper's decoding conditions
+# on) and 128 greedy tokens in its 448-slot decoder context; qwen2-vl-72b
+# at full width (64 / 8 heads of 128, d_ff 29568, vocab 152064), 8 of its
+# 80 layers (the 80 are ~145 GB in bf16), under phase 3's traffic whose
+# first 256 positions are a 16 x 16 grid of vision embeddings
+WHISPER_ARCH, VLM_ARCH = "whisper-medium", "qwen2-vl-72b"
+WHISPER_TRAFFIC = (64, 128, 448)       # prompt, new tokens, max_seq
+VLM_LAYERS, VLM_GRID = 8, 16
+# training: whisper (B=2, S=448, 1500 frames) in none and offload +
+# offload_opt_state; qwen2-vl at 2 layers (B=1, S=512) in offload +
+# offload_opt_state only (its fp32 moments are ~34 GB of pinned host)
+WHISPER_TRAIN, VLM_TRAIN = (2, 448), (1, 512)
+VLM_TRAIN_LAYERS = 2
+# their heads in the kernels phase: (label, heads, kv heads, head dim,
+# prompt, ring slots, decode pos, per-row positions)
+FRONTEND_HEADS = (("whisper", 16, 16, 64, 64, 448, 447, (191, 63, 0, 447)),
+                  ("qwen2-vl", 64, 8, 128, PROMPT, MAX_SEQ, PROMPT + 8,
+                   SCHED_ROWS))
 
 FLASH = {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -305,6 +349,8 @@ def main() -> int:
     run("moe", phase_moe, torch, dev, kernels)
     run("mla", phase_mla, torch, dev, kernels)
     run("codeqwen", phase_codeqwen, torch, dev, kernels)
+    run("whisper", phase_whisper, torch, dev, kernels)
+    run("vlm", phase_vlm, torch, dev, kernels)
     for k in kernels.values():
         assert k["launches"] > 0, f"{k['name']} never launched on a path"
     log("total", seconds=f"{time.perf_counter() - t_start:.2f}")
@@ -430,7 +476,9 @@ def kernels_flash(torch, dev, entry, randn, tols) -> None:
         ("gemma2-short-window", 2, 16, 8, 300, 256, 128, 50.0),
         ("ragged-g8", 2, 8, 1, 33, 96, None, 30.0),
     ] + [(name, 4, hq, hkv, PROMPT, d, None, None)
-         for name, hq, hkv, d in NEW_HEADS]
+         for name, hq, hkv, d in NEW_HEADS] \
+        + [(name, 4, hq, hkv, s, d, None, None)
+           for name, hq, hkv, d, s, *_ in FRONTEND_HEADS]
     main_err = 0.0
     for name, b, hq, hkv, s, d, window, cap in flash_cases:
         for dtype, tol in tols.items():
@@ -446,10 +494,13 @@ def kernels_flash(torch, dev, entry, randn, tols) -> None:
                 main_err = err
     # times at phi3's head dim (the main shape, in the kernels line), at
     # zamba2's 112 and at the new paths' heads (granite G=3 D=64, codeqwen
-    # G=1 D=128)
-    b, s = 4, PROMPT
-    for label, h, hkv, d in (("phi3", 32, 32, 96), ("zamba2", 32, 32, 112),
-                             *NEW_HEADS):
+    # G=1 D=128, whisper's 16 heads of 64 over its 64-token prompt,
+    # qwen2-vl's G=8 D=128)
+    b = 4
+    for label, h, hkv, d, s in (
+            ("phi3", 32, 32, 96, PROMPT), ("zamba2", 32, 32, 112, PROMPT),
+            *((*head, PROMPT) for head in NEW_HEADS),
+            *(head[:5] for head in FRONTEND_HEADS)):
         q = randn(b, h, s, d, dtype=torch.bfloat16)
         k, v = (randn(b, hkv, s, d, dtype=torch.bfloat16) for _ in range(2))
         scale = d ** -0.5
@@ -512,7 +563,8 @@ def kernels_paged(torch, dev, entry, randn, tols) -> None:
         ("tail-only", 4, 32, 32, 96, [], 5, None),
         ("empty", 4, 32, 32, 96, [], 0, None),
         ("granite", 4, 24, 8, 64, list(range(16)), 19, None),
-    ]
+    ] + [(name, 4, hq, hkv, d, list(range(16)), 19, None)
+         for name, hq, hkv, d, *_ in FRONTEND_HEADS]
     for name, b, hq, hkv, d, table, tail_len, cap in paged_cases:
         for dtype, tol in tols.items():
             args = (randn(b, hq, d, dtype=dtype),
@@ -534,9 +586,9 @@ def kernels_paged(torch, dev, entry, randn, tols) -> None:
             if name == "phi3" and dtype == torch.bfloat16:
                 entry.update(max_abs_err=err, tol=tol)
                 main_args = args
-            if name == "granite" and dtype == torch.bfloat16:
-                granite_args = args
-    paged_time(torch, dev, entry, granite_args, "granite")
+            if dtype == torch.bfloat16 and name in (
+                    "granite", *(h[0] for h in FRONTEND_HEADS)):
+                paged_time(torch, dev, entry, args, name)
     q, kp, vp, table, kt, vt, tail_len = main_args
     b, hq, d = q.shape
     hkv, tokens = kt.shape[2], table.numel() * PAGE + tail_len
@@ -581,10 +633,13 @@ def paged_time(torch, dev, entry, args, label) -> None:
     entry.setdefault("shapes", {})[label] = dict(
         ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
         library_ms=None)
+    rows = (table.numel() + 1) * PAGE
     log("kernels", kernel="paged_decode_attention",
         shape=f"{label}/B{b}xHq{hq}xHkv{hkv}xD{d}/{tokens}tok/bf16",
         ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}",
-        bound_ms=f"{bound_ms:.4f}", bound_by=bound_by)
+        bound_ms=f"{bound_ms:.4f}", bound_by=bound_by,
+        **split_smem(torch, dev, "paged_decode_attention_smem_bytes", b,
+                     hq, hkv, d, rows))
 
 
 def kernels_decode(torch, dev, entry, randn, tols) -> None:
@@ -603,6 +658,8 @@ def kernels_decode(torch, dev, entry, randn, tols) -> None:
              ("gemma2-wrapped", 2, 16, 8, 4096, 256, 5000, 50.0)]
     cases += [(name, 4, hq, hkv, MAX_SEQ, d, PROMPT + 8, None)
               for name, hq, hkv, d in NEW_HEADS]
+    cases += [(name, 4, hq, hkv, c, d, pos, None)
+              for name, hq, hkv, d, _, c, pos, _ in FRONTEND_HEADS]
     cases += [(f"wrap-pos{p}", 2, 4, 2, 64, 32, p, None)
               for p in (63, 64, 65, 95, 96, 200)]
     # the split-K cuts (tests/test_torch_kernels.py's split model), as
@@ -628,8 +685,8 @@ def kernels_decode(torch, dev, entry, randn, tols) -> None:
             if name == "phi3" and dtype == torch.bfloat16:
                 entry.update(max_abs_err=err, tol=tol)
                 main = (q, k, v, pos)
-            if dtype == torch.bfloat16 and name in {n for n, *_ in
-                                                    NEW_HEADS}:
+            if dtype == torch.bfloat16 and name in {
+                    n for n, *_ in NEW_HEADS + FRONTEND_HEADS}:
                 decode_time(torch, entry, (q, k, v, pos), name)
     q, k, v, pos = main
     b, hq, d = q.shape
@@ -702,25 +759,49 @@ def decode_time(torch, entry, args, label) -> None:
         shape=f"{label}/B{b}xHq{hq}xHkv{hkv}xC{c}xD{d}/pos{pos}/bf16",
         valid_slots=rows, ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}",
         library_ms=f"{library_ms:.4f}", bound_ms=f"{bound_ms:.4f}",
-        bound_by=bound_by)
+        bound_by=bound_by,
+        **split_smem(torch, q.device, "decode_attention_smem_bytes", b, hq,
+                     hkv, d, c))
+
+
+def split_smem(torch, dev, fn: str, b, hq, hkv, d, rows) -> dict:
+    """The split-K cut the wrapper makes for this shape (rows per block,
+    splits) and the shared memory a block asks for, in bf16 and fp32,
+    against the card's limit (the wrapper raises above it)."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels.paged_attention import ring_split
+
+    split = ring_split(b * hkv, rows,
+                       torch.cuda.get_device_properties(dev).multi_processor_count)
+    n_split = -(-rows // split)
+    lib = build.load_library()
+    smem = {dt: getattr(lib, fn)(code, hq // hkv, d, split, n_split)
+            for dt, code in (("bf16", 1), ("fp32", 0))}
+    assert max(smem.values()) <= build.MAX_SMEM_BYTES, smem
+    return dict(split=split, splits=n_split, smem_bf16=smem["bf16"],
+                smem_fp32=smem["fp32"], smem_limit=build.MAX_SMEM_BYTES)
 
 
 def kernels_decode_rows(torch, dev, entry, randn, tols, scalar_ms) -> None:
     """The ring kernel with a device (B,) pos, each row at its own position
     (the continuous scheduler's decode): phi3's shape with rows at C - 1,
     mid-ring and a free slot decoded at 0, then with wrapped rows, and
-    granite's and codeqwen's heads at the first rows; bf16 and fp32
+    the new paths' heads (granite, codeqwen and qwen2-vl at the first
+    rows; whisper's over its 448-slot ring); bf16 and fp32
     against the plain version at the same (B,) pos. The first case's
     device time is logged beside the scalar path's (``scalar_ms``)."""
     from repro_torch.kernels.paged_attention import decode_attention_cuda
     from repro_torch.kernels.ref import decode_attention_ref
 
-    b, c = BATCH, MAX_SEQ
-    for name, rows, (hq, hkv, d) in (
-            ("phi3-per-row", SCHED_ROWS, (32, 32, 96)),
-            ("phi3-per-row-wrapped", (600, 37, 0, 2 * c - 1), (32, 32, 96)),
-            *((f"{label}-per-row", SCHED_ROWS, (h, g, dd))
-              for label, h, g, dd in NEW_HEADS)):
+    b = BATCH
+    for name, rows, (hq, hkv, d), c in (
+            ("phi3-per-row", SCHED_ROWS, (32, 32, 96), MAX_SEQ),
+            ("phi3-per-row-wrapped", (600, 37, 0, 2 * MAX_SEQ - 1),
+             (32, 32, 96), MAX_SEQ),
+            *((f"{label}-per-row", SCHED_ROWS, (h, g, dd), MAX_SEQ)
+              for label, h, g, dd in NEW_HEADS),
+            *((f"{label}-per-row", rows, (h, g, dd), c)
+              for label, h, g, dd, _, c, _, rows in FRONTEND_HEADS)):
         scale = d ** -0.5
         pos = torch.tensor(rows, dtype=torch.int32, device=dev)
         for dtype, tol in tols.items():
@@ -735,7 +816,7 @@ def kernels_decode_rows(torch, dev, entry, randn, tols, scalar_ms) -> None:
                                              scale=scale), tol)
             if name == "phi3-per-row" and dtype == torch.bfloat16:
                 main = (q, k, v, err)
-    hq, hkv, d = 32, 32, 96
+    hq, hkv, d, c = 32, 32, 96, MAX_SEQ
     scale = d ** -0.5
     q, k, v, err = main
     pos = torch.tensor(SCHED_ROWS, dtype=torch.int32, device=dev)
@@ -976,10 +1057,12 @@ def routing_flips(a, b) -> int:
                for (ea, ka, da), (eb, kb, db) in zip(a, b))
 
 
-def check_decode_logits(torch, phase: str, model, params, tokens) -> None:
+def check_decode_logits(torch, phase: str, model, params, batch,
+                        prompt: int = PROMPT, max_seq: int = MAX_SEQ) -> None:
     """One decode step's logits with the ring kernel against the plain
     decode (``use_attention_impl("plain")``), from one cache that a plain
-    prefill filled, at pos = PROMPT. fp32 (TF32 off): within 1e-4. bf16:
+    prefill of ``batch`` filled, at pos = ``prompt``. fp32 (TF32 off):
+    within 1e-4. bf16:
     the kernel path's RMS error against fp32 plain within 5 % of the plain
     bf16 path's (the two differ only in the decode attention, which both
     sum in fp32 and round to bf16 once). Where an MoE router's decisions
@@ -987,20 +1070,19 @@ def check_decode_logits(torch, phase: str, model, params, tokens) -> None:
     2e-2 and the bf16 ones by ``check_logits``'s rule (plain + 2e-2)."""
     from repro_torch.models.runtime import use_attention_impl
 
-    dev = tokens.device
+    dev = batch["tokens"].device
 
     def step(weights, dtype):
-        cache = model.init_cache(BATCH, MAX_SEQ, dtype, dev)
+        cache = model.init_cache(BATCH, max_seq, dtype, dev)
         with torch.inference_mode():
             with use_attention_impl("plain"):
-                logits, cache = model.prefill(weights, {"tokens": tokens},
-                                              cache)
+                logits, cache = model.prefill(weights, batch, cache)
             tok = logits[:, 0].argmax(-1).to(torch.int32)[:, None]
             twin = _tree_map(lambda t: t.clone(), cache)
             with moe_routes() as kernel_routes:
-                kernel, _ = model.decode_step(weights, cache, tok, PROMPT)
+                kernel, _ = model.decode_step(weights, cache, tok, prompt)
             with use_attention_impl("plain"), moe_routes() as plain_routes:
-                plain, _ = model.decode_step(weights, twin, tok, PROMPT)
+                plain, _ = model.decode_step(weights, twin, tok, prompt)
         del cache, twin
         return kernel.float(), plain.float(), routing_flips(kernel_routes,
                                                             plain_routes)
@@ -1014,7 +1096,7 @@ def check_decode_logits(torch, phase: str, model, params, tokens) -> None:
     assert bool(torch.isfinite(kernel32).all())
     rms_kernel = (kernel16 - plain32).pow(2).mean().sqrt().item()
     rms_plain = (plain16 - plain32).pow(2).mean().sqrt().item()
-    log(phase, check="decode-step logits kernel vs plain", pos=PROMPT,
+    log(phase, check="decode-step logits kernel vs plain", pos=prompt,
         fp32_max_abs_err=f"{err32:.3e}", fp32_tol=1e-4, routing_flips=flips,
         bf16_routing_flips=flips16,
         bf16_kernel_rms=f"{rms_kernel:.3e}", bf16_plain_rms=f"{rms_plain:.3e}",
@@ -1043,12 +1125,17 @@ def mixers(cfg):
 
 
 def serve(torch, dev, kernels, arch: str, phase: str, n_prompts: int = 1,
-          stat: str = "max", metrics=None):
+          stat: str = "max", metrics=None, *, cfg=None, traffic=None,
+          frontend=None):
     """``ServeEngine.generate`` of ``arch`` at full width and depth in
-    bf16, resident then ``offload_kv``; returns (model, params, tokens).
-    The prefill logits are held against the plain path on ``n_prompts``
-    prompts by ``stat`` (see :func:`check_logits`). ``metrics`` (a dict)
-    receives the prefill ms and each mode's decode ms a step."""
+    bf16, resident then ``offload_kv``; returns (model, params, batch),
+    ``batch`` the first prompt's inputs. The prefill logits are held
+    against the plain path on ``n_prompts`` prompts by ``stat`` (see
+    :func:`check_logits`). ``metrics`` (a dict) receives the prefill ms,
+    each mode's decode ms a step, tok/s and the round trip's bytes a step.
+    ``cfg`` stands in for ``REGISTRY[arch]`` (a depth cut); ``traffic``
+    (prompt, new tokens, max_seq) for phase 3's; ``frontend(gen)`` gives
+    a prompt's frontend-stub entries on the card."""
     from repro_torch.configs import REGISTRY
     from repro_torch.kernels import ops
     from repro_torch.models.model import build_model
@@ -1057,7 +1144,8 @@ def serve(torch, dev, kernels, arch: str, phase: str, n_prompts: int = 1,
     from repro_torch.pool import default_pool
     from repro_torch.serving import ServeEngine
 
-    cfg = REGISTRY[arch]
+    cfg = REGISTRY[arch] if cfg is None else cfg
+    prompt, new_tokens, max_seq = traffic or (PROMPT, NEW_TOKENS, MAX_SEQ)
     n_attn, n_mamba = mixers(cfg)
     model = build_model(cfg)
     bf16 = torch.bfloat16
@@ -1065,10 +1153,12 @@ def serve(torch, dev, kernels, arch: str, phase: str, n_prompts: int = 1,
     params, init_s = synced_s(torch, lambda: model.init(gen, bf16, dev))
     n_params = sum(t.numel() for t in _leaves(params))
     weight_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
-    prompts = [torch.randint(0, cfg.vocab_size, (BATCH, PROMPT), generator=gen,
-                             device=dev, dtype=torch.int32)
+    prompts = [dict(tokens=torch.randint(0, cfg.vocab_size, (BATCH, prompt),
+                                         generator=gen, device=dev,
+                                         dtype=torch.int32),
+                    **(frontend(gen) if frontend else {}))
                for _ in range(n_prompts)]
-    tokens = prompts[0]
+    batch = prompts[0]
     log(phase, arch=cfg.name, layers=cfg.n_layers, attn_layers=n_attn,
         mamba2_layers=n_mamba, d_model=cfg.d_model, heads=cfg.n_heads,
         head_dim=cfg.head_dim, d_ff=cfg.d_ff, vocab=cfg.vocab_size,
@@ -1076,12 +1166,12 @@ def serve(torch, dev, kernels, arch: str, phase: str, n_prompts: int = 1,
         init_s=f"{init_s:.2f}")
 
     def prefill(weights, dtype, i=0):
-        cache = model.init_cache(BATCH, MAX_SEQ, dtype, dev)
+        cache = model.init_cache(BATCH, max_seq, dtype, dev)
         with torch.inference_mode():
-            return model.prefill(weights, {"tokens": prompts[i]}, cache)[0]
+            return model.prefill(weights, prompts[i], cache)[0]
 
     check_logits(torch, phase, prefill, params, n_prompts, stat)
-    check_decode_logits(torch, phase, model, params, prompts[0])
+    check_decode_logits(torch, phase, model, params, batch, prompt, max_seq)
     del prompts[1:]
     _, kernel_prefill_s = synced_s(torch, lambda: prefill(params, bf16))
     with use_attention_impl("plain"):
@@ -1090,15 +1180,14 @@ def serve(torch, dev, kernels, arch: str, phase: str, n_prompts: int = 1,
     # the main path: counts set to 0 just before, read just after
     gb = 1e9
     ops.reset_launch_counts()
-    resident = ServeEngine(model, params, max_seq=MAX_SEQ, cache_dtype=bf16)
+    resident = ServeEngine(model, params, max_seq=max_seq, cache_dtype=bf16)
     torch.cuda.reset_peak_memory_stats()
-    res, res_s = synced_s(torch, lambda: resident.generate(
-        {"tokens": tokens}, NEW_TOKENS))
+    res, res_s = synced_s(torch, lambda: resident.generate(batch, new_tokens))
     res_peak = torch.cuda.max_memory_allocated()
     after_resident = ops.launch_counts()
     tracer = Tracer()
     pool = default_pool(device=dev, tracer=tracer)
-    offload = ServeEngine(model, params, max_seq=MAX_SEQ, cache_dtype=bf16,
+    offload = ServeEngine(model, params, max_seq=max_seq, cache_dtype=bf16,
                           offload_kv=True, pool=pool, tracer=tracer)
     host_buffers = {}     # pool key -> {(address, dtype, pinned)}
     pool_put = pool.put
@@ -1113,14 +1202,13 @@ def serve(torch, dev, kernels, arch: str, phase: str, n_prompts: int = 1,
     pool.put = recording_put
     torch.cuda.reset_peak_memory_stats()
     before_off = torch.cuda.memory_allocated()
-    off, off_s = synced_s(torch, lambda: offload.generate(
-        {"tokens": tokens}, NEW_TOKENS))
+    off, off_s = synced_s(torch, lambda: offload.generate(batch, new_tokens))
     off_peak = torch.cuda.max_memory_allocated()
     counts = ops.launch_counts()
     for name, n in counts.items():
         kernels[name]["launches"] += n
 
-    assert res.shape == (BATCH, NEW_TOKENS) and res.dtype == torch.int32
+    assert res.shape == (BATCH, new_tokens) and res.dtype == torch.int32
     assert int(res.min()) >= 0 and int(res.max()) < cfg.vocab_size
     assert torch.equal(res, off), "offload_kv tokens differ from resident"
     # one prefill per generate: each attention layer launches flash once,
@@ -1128,20 +1216,20 @@ def serve(torch, dev, kernels, arch: str, phase: str, n_prompts: int = 1,
     # ring kernel once per attention layer
     expect = {"flash_attention": n_attn, "ssd_scan": n_mamba,
               "paged_decode_attention": 0,
-              "decode_attention": n_attn * (NEW_TOKENS - 1)}
+              "decode_attention": n_attn * (new_tokens - 1)}
     assert after_resident == expect, (after_resident, expect)
     assert counts == {k: 2 * v for k, v in expect.items()}, counts
     # every SSD launch of the bf16 prefills took the tensor-core instance
     assert ssd_instances() == {"mma_tf32": counts["ssd_scan"],
                                "fma_f32": 0}, ssd_instances()
-    assert offload.stats.cache_round_trips == NEW_TOKENS - 1
+    assert offload.stats.cache_round_trips == new_tokens - 1
     stats = offload.pool_stats()
     for key in ("puts", "gets", "bytes_stored", "bytes_fetched"):
         assert stats[key] > 0, (key, stats[key])
     trips = [e.dur for e in tracer.events() if e.name == "cache_round_trip"]
-    assert len(trips) == NEW_TOKENS - 1
+    assert len(trips) == new_tokens - 1
     # every cache leaf makes the round trip once per step, at its own dtype
-    leaves = list(_leaves(model.init_cache(BATCH, MAX_SEQ, bf16, dev)))
+    leaves = list(_leaves(model.init_cache(BATCH, max_seq, bf16, dev)))
     leaf_bytes = sum(t.numel() * t.element_size() for t in leaves)
     assert stats["puts"] == stats["gets"] == len(leaves) * len(trips), stats
     assert stats["bytes_stored"] == stats["bytes_fetched"] \
@@ -1154,20 +1242,24 @@ def serve(torch, dev, kernels, arch: str, phase: str, n_prompts: int = 1,
         == sorted(str(t.dtype) for t in leaves)
     del pool.put
     moved = stats["bytes_stored"] + stats["bytes_fetched"]
-    steps = NEW_TOKENS - 1
+    steps = new_tokens - 1
     if metrics is not None:
         metrics.update(
             prefill_ms=kernel_prefill_s * 1e3,
             resident_decode_ms=(res_s - kernel_prefill_s) / steps * 1e3,
-            offload_decode_ms=(off_s - kernel_prefill_s) / steps * 1e3)
+            offload_decode_ms=(off_s - kernel_prefill_s) / steps * 1e3,
+            resident_tok_per_s=BATCH * new_tokens / res_s,
+            offload_tok_per_s=BATCH * new_tokens / off_s,
+            round_trip_bytes=moved // len(trips), leaf_bytes=leaf_bytes,
+            resident_peak_gb=res_peak / 1e9, offload_peak_gb=off_peak / 1e9)
     log(phase, mode="resident", generate_s=f"{res_s:.3f}",
         prefill_ms=f"{kernel_prefill_s * 1e3:.2f}",
         plain_prefill_ms=f"{plain_prefill_s * 1e3:.2f}",
         decode_ms_per_step=f"{(res_s - kernel_prefill_s) / steps * 1e3:.2f}",
-        tok_per_s=f"{BATCH * NEW_TOKENS / res_s:.1f}")
+        tok_per_s=f"{BATCH * new_tokens / res_s:.1f}")
     log(phase, mode="offload_kv", generate_s=f"{off_s:.3f}",
         decode_ms_per_step=f"{(off_s - kernel_prefill_s) / steps * 1e3:.2f}",
-        tok_per_s=f"{BATCH * NEW_TOKENS / off_s:.1f}",
+        tok_per_s=f"{BATCH * new_tokens / off_s:.1f}",
         round_trips=offload.stats.cache_round_trips,
         cache_leaves=len(leaves), pinned_buffers=len(host_buffers),
         leaf_dtypes=sorted({str(t.dtype)[6:] for t in leaves}),
@@ -1190,16 +1282,18 @@ def serve(torch, dev, kernels, arch: str, phase: str, n_prompts: int = 1,
     # with the profiler off, then the device time the profiler records
     for mode, engine in (("resident", resident), ("offload_kv", offload)):
         def short():
-            return engine.generate({"tokens": tokens}, PROFILE_TOKENS)
+            return engine.generate(batch, PROFILE_TOKENS)
         _, wall_s = synced_s(torch, short)
         busy_ms, top = device_busy_ms(torch, short)
+        if metrics is not None and busy_ms:
+            metrics[f"{mode}_idle_share"] = 1 - busy_ms / (wall_s * 1e3)
         log(phase, profile=mode, new_tokens=PROFILE_TOKENS,
             wall_ms=f"{wall_s * 1e3:.2f}", device_busy_ms=f"{busy_ms:.2f}",
             device_idle_share=(f"{1 - busy_ms / (wall_s * 1e3):.3f}"
                                if busy_ms else "not measured"))
         log(phase, profile=mode, top_device_ms=json.dumps(top))
     pool.close()
-    return model, params, tokens
+    return model, params, batch
 
 
 def ssd_instances():
@@ -2439,11 +2533,13 @@ def link_rates(torch, dev, nbytes: int = 1 << 30):
     return h2d, d2h, both
 
 
-def train_modes(torch, dev, phase: str, cfg, modes):
+def train_modes(torch, dev, phase: str, cfg, modes,
+                shape=(TRAIN_BATCH, TRAIN_SEQ)):
     """Four ``TRAIN_STEPS`` of ``cfg`` (bf16 parameters, fp32 moments) in
     each memory mode of ``modes`` ((remat, offload_opt_state) pairs) from
     the same seeded initialisation over the same repeated
-    ``SyntheticTokens`` batch. Logs per mode ms per step, peak device
+    ``SyntheticTokens`` batch of ``shape`` (B, S), with the config's
+    frontend-stub inputs. Logs per mode ms per step, peak device
     memory, activation and moment bytes a step, losses, grad norms and the
     largest differences from the first mode, then a profiled step. Holds:
     finite, falling losses; ``offload`` parking ``TRAIN_TAGS`` values a
@@ -2463,12 +2559,11 @@ def train_modes(torch, dev, phase: str, cfg, modes):
     # every step fits the same batch: at random initialisation the loss
     # differs more between two fresh batches than four steps of AdamW move
     # it, so only a batch seen again shows the loss fall
-    batch = SyntheticTokens(cfg.vocab_size, seq_len=TRAIN_SEQ,
-                            global_batch=TRAIN_BATCH, seed=0).batch(
-                                0, device=dev)
+    bsz, seq = shape
+    batch = SyntheticTokens(cfg.vocab_size, seq_len=seq, global_batch=bsz,
+                            seed=0).batch(0, cfg, device=dev)
     batches = [batch] * TRAIN_STEPS
-    act_per_step = TRAIN_TAGS * layers * TRAIN_BATCH * TRAIN_SEQ \
-        * cfg.d_model * 2
+    act_per_step = TRAIN_TAGS * layers * bsz * seq * cfg.d_model * 2
     results = {}
     ref_params = None
     ops.reset_launch_counts()
@@ -2688,10 +2783,10 @@ def phase_paged(torch, dev, kernels) -> None:
 def phase_hybrid(torch, dev, kernels) -> None:
     # at 81 bf16 layers the maximum error swings with the prompt (PERF.md):
     # the bf16 rule holds the RMS error, on three prompts
-    model, params, tokens = serve(torch, dev, kernels, HYBRID_ARCH, "hybrid",
-                                  n_prompts=HYBRID_PROMPTS, stat="rms")
-    phase_ring(torch, dev, kernels, model, params, tokens)
-    del model, params, tokens
+    model, params, batch = serve(torch, dev, kernels, HYBRID_ARCH, "hybrid",
+                                 n_prompts=HYBRID_PROMPTS, stat="rms")
+    phase_ring(torch, dev, kernels, model, params, batch["tokens"])
+    del model, params, batch
     torch.cuda.empty_cache()
 
 
@@ -2817,14 +2912,14 @@ def phase_moe(torch, dev, kernels) -> None:
     losses and parameters."""
     from repro_torch.configs import REGISTRY
 
-    model, params, tokens = serve(torch, dev, kernels, MOE_ARCH, "moe",
-                                  stat="rms")
-    moe_routing(torch, model, params, tokens)
+    model, params, batch = serve(torch, dev, kernels, MOE_ARCH, "moe",
+                                 stat="rms")
+    moe_routing(torch, model, params, batch["tokens"])
     moe_costs(torch, dev, model, params)
     moe_determinism(torch, dev, model, params)
     sched_session(torch, dev, kernels, model, params, "moe",
                   ("continuous", "kv_offload"))
-    del model, params, tokens
+    del model, params, batch
     torch.cuda.empty_cache()
     results = train_modes(torch, dev, "moe", REGISTRY[MOE_ARCH],
                           MOE_TRAIN_MODES)
@@ -2980,11 +3075,11 @@ def phase_mla(torch, dev, kernels) -> None:
     trace through the session with ``kv_offload`` (the 3-D latent leaves
     parked and fetched through the pool)."""
     metrics = {}
-    model, params, tokens = serve(torch, dev, kernels, MLA_ARCH, "mla",
-                                  metrics=metrics)
+    model, params, _ = serve(torch, dev, kernels, MLA_ARCH, "mla",
+                             metrics=metrics)
     mla_upprojection(torch, dev, model, params, metrics)
     sched_session(torch, dev, kernels, model, params, "mla", ("kv_offload",))
-    del model, params, tokens
+    del model, params
     torch.cuda.empty_cache()
 
 
@@ -3015,10 +3110,207 @@ def phase_codeqwen(torch, dev, kernels) -> None:
     """codeqwen1.5-7b (dense MHA, 32 heads of 128) at full width and depth,
     served as in phase 3: flash at D=128, G=1 on every prefill, the ring
     kernel on every decode step."""
-    model, params, tokens = serve(torch, dev, kernels, MHA_ARCH, "codeqwen")
-    del model, params, tokens
+    serve(torch, dev, kernels, MHA_ARCH, "codeqwen")
     torch.cuda.empty_cache()
 
+
+# ---------------------------------------------------------------------------
+# 14. whisper: whisper-medium; 15. vlm: qwen2-vl-72b at 8 of 80 layers
+# ---------------------------------------------------------------------------
+
+
+def depth(cfg, layers: int):
+    """``cfg`` with its one segment cut to ``layers`` repeats."""
+    seg, = cfg.segments
+    return dataclasses.replace(cfg, segments=(
+        dataclasses.replace(seg, repeats=layers),))
+
+
+def phase_whisper(torch, dev, kernels) -> None:
+    """whisper-medium at full width and depth (24 encoder and 24 decoder
+    layers, MHA 16 x 64, 1500 frames): served as in phase 3 under its own
+    traffic (B=4, a 64-token decoder prompt, 128 greedy tokens, max_seq
+    448; flash at 16 heads of 64 on the decoder's prefill, the ring kernel
+    over its 448 slots; the encoder's self-attention and every
+    cross-attention plain, as in the reference), the round trip carrying
+    the cross leaves; the encoder's time; the logits moving with the
+    encoder's input; the continuous scheduler refusing it; then four
+    training steps (B=2, S=448) in ``none`` and ``offload`` +
+    ``offload_opt_state``, losses, grad norms and every parameter (the
+    encoder's too) equal bit for bit."""
+    from repro_torch.configs import REGISTRY
+
+    cfg = REGISTRY[WHISPER_ARCH]
+
+    def frontend(gen):
+        return {"enc_embeds": (0.1 * torch.randn(
+            BATCH, cfg.encoder.n_frames, cfg.d_model, device=dev,
+            generator=gen)).to(torch.bfloat16)}
+
+    metrics = {}
+    model, params, batch = serve(torch, dev, kernels, WHISPER_ARCH,
+                                 "whisper", metrics=metrics,
+                                 traffic=WHISPER_TRAFFIC, frontend=frontend)
+    whisper_encoder(torch, dev, model, params, batch, metrics, frontend)
+    del model, params, batch
+    torch.cuda.empty_cache()
+    results = train_modes(torch, dev, "whisper", cfg, MOE_TRAIN_MODES,
+                          shape=WHISPER_TRAIN)
+    none, off = results["none"], results["offload+opt"]
+    log("whisper", check="training, offload+opt vs none (encoder included)",
+        losses_equal=off["losses"] == none["losses"],
+        grad_norms_equal=off["grad_norms"] == none["grad_norms"],
+        max_dparam=off["dp"],
+        peak_saved_gb=f"{(none['peak'] - off['peak']) / 1e9:.3f}")
+    assert off["losses"] == none["losses"], (off["losses"], none["losses"])
+    assert off["grad_norms"] == none["grad_norms"] and off["dp"] == 0.0
+
+
+def whisper_encoder(torch, dev, model, params, batch, metrics,
+                    frontend) -> None:
+    """The encoder's share of the prefill (host clock, and the device time
+    the profiler records), one encoder layer's plain self-attention over
+    the 1500 frames (device ms behind the spin kernel, times the layers),
+    the prefill logits against those of another encoder input (they must
+    move), the cross leaves' bytes in the round trip, and the scheduler's
+    refusal."""
+    from repro_torch.models import attention as attn
+    from repro_torch.models import transformer as tfm
+    from repro_torch.sched import ContinuousScheduler, SchedulerConfig
+
+    cfg = model.cfg
+    emb = batch["enc_embeds"]
+    n = cfg.encoder.n_layers
+    with torch.inference_mode():
+        walls = [synced_s(torch, lambda: tfm.encode(cfg, params, emb))[1]
+                 for _ in range(3)]
+        busy_ms, top = device_busy_ms(
+            torch, lambda: tfm.encode(cfg, params, emb))
+        p = tfm._index(params["encoder"]["layers"], 0)["mixer"]
+        pos = torch.arange(emb.shape[1], device=dev)[None].expand(BATCH, -1)
+        attn_ms, _ = timed(torch, lambda: attn.attention_full(
+            cfg, tfm.ENCODER_LAYER, p, emb, pos, causal=False), iters=4)
+
+        def logits(b):
+            cache = model.init_cache(BATCH, WHISPER_TRAFFIC[2],
+                                     torch.bfloat16, dev)
+            return model.prefill(params, b, cache)[0].float()
+
+        base = logits(batch)
+        other = logits(dict(batch, **frontend(
+            torch.Generator(device=dev).manual_seed(11))))
+    moved = (base - other).abs().max().item()
+    enc_ms = sorted(walls)[1] * 1e3
+    log("whisper", encoder_ms=f"{enc_ms:.2f}",
+        encoder_device_busy_ms=f"{busy_ms:.2f}",
+        prefill_ms=f"{metrics['prefill_ms']:.2f}",
+        encoder_share_of_prefill=f"{enc_ms / metrics['prefill_ms']:.3f}",
+        encoder_attention_device_ms_per_layer=f"{attn_ms:.4f}",
+        encoder_attention_device_ms=f"{attn_ms * n:.3f}",
+        encoder_top_kernels=json.dumps(top))
+    log("whisper", check="prefill logits move with the encoder's input",
+        max_abs_change=f"{moved:.3e}", min_change=1e-2)
+    assert math.isfinite(moved) and moved > 1e-2, moved
+    # the cross leaves' share of the round trip: (xk, xv) of every layer
+    cross = 2 * cfg.n_layers * BATCH * cfg.encoder.n_frames \
+        * cfg.n_kv_heads * cfg.head_dim * 2
+    log("whisper", resident_decode_ms=f"{metrics['resident_decode_ms']:.2f}",
+        offload_decode_ms=f"{metrics['offload_decode_ms']:.2f}",
+        resident_tok_per_s=f"{metrics['resident_tok_per_s']:.1f}",
+        offload_tok_per_s=f"{metrics['offload_tok_per_s']:.1f}",
+        resident_peak_gb=f"{metrics['resident_peak_gb']:.3f}",
+        offload_peak_gb=f"{metrics['offload_peak_gb']:.3f}",
+        resident_idle_share=f"{metrics.get('resident_idle_share', float('nan')):.3f}",
+        round_trip_bytes_per_step=metrics["round_trip_bytes"],
+        cache_bytes=metrics["leaf_bytes"], cross_leaf_bytes=cross,
+        self_leaf_bytes=metrics["leaf_bytes"] - cross)
+    try:
+        ContinuousScheduler(model, params, SchedulerConfig(
+            max_batch=BATCH, max_seq=WHISPER_TRAFFIC[2]))
+    except ValueError as e:
+        log("whisper", scheduler="refused", reason=json.dumps(str(e)))
+    else:
+        raise AssertionError("the scheduler took an encoder model")
+
+
+def vision_frontend(torch, dev, cfg, b: int, s: int, grid: int):
+    """Frontend-stub inputs of a prompt whose first grid x grid positions
+    are vision embeddings (0.1 x N(0, 1), bf16) at M-RoPE positions whose
+    planes differ (temporal 0, height the row, width the column); text
+    positions are the sequence index in all three planes, as decode
+    continues them."""
+    n = grid * grid
+
+    def make(gen):
+        emb = torch.zeros(b, s, cfg.d_model, device=dev, dtype=torch.bfloat16)
+        emb[:, :n] = 0.1 * torch.randn(b, n, cfg.d_model, device=dev,
+                                       generator=gen)
+        mask = torch.zeros(b, s, dtype=torch.bool, device=dev)
+        mask[:, :n] = True
+        pos = torch.arange(s, dtype=torch.int32, device=dev).expand(
+            3, b, s).clone()
+        span = torch.arange(n, dtype=torch.int32, device=dev)
+        pos[0, :, :n] = 0
+        pos[1, :, :n] = span // grid
+        pos[2, :, :n] = span % grid
+        return {"vision_embeds": emb, "vision_mask": mask, "positions": pos}
+    return make
+
+
+def phase_vlm(torch, dev, kernels) -> None:
+    """qwen2-vl-72b at full width, cut to ``VLM_LAYERS`` of its 80 layers:
+    served as in phase 3 (flash at 64 / 8 heads of 128, G=8, and the ring
+    kernel at the same heads) with a 16 x 16 vision grid in front of the
+    prompt; the prefill logits moving with the vision embeddings and with
+    the grid's planes; the sched trace (text only) through
+    ``HyperOffloadSession`` in ``continuous`` and ``kv_offload``; then four
+    training steps at ``VLM_TRAIN_LAYERS`` layers (B=1, S=512, vision
+    inputs) in ``offload`` + ``offload_opt_state``, if the host can pin the
+    moments."""
+    from repro_torch.configs import REGISTRY
+    from repro_torch.models import transformer as tfm
+
+    full = REGISTRY[VLM_ARCH]
+    cfg = depth(full, VLM_LAYERS)
+    frontend = vision_frontend(torch, dev, cfg, BATCH, PROMPT, VLM_GRID)
+    model, params, batch = serve(torch, dev, kernels, VLM_ARCH, "vlm",
+                                 cfg=cfg, frontend=frontend)
+    with torch.inference_mode():
+        def logits(b):
+            cache = model.init_cache(BATCH, MAX_SEQ, torch.bfloat16, dev)
+            return model.prefill(params, b, cache)[0].float()
+
+        base = logits(batch)
+        other_embeds = frontend(torch.Generator(device=dev).manual_seed(12))
+        equal_planes = torch.arange(PROMPT, dtype=torch.int32,
+                                    device=dev).expand(3, BATCH, PROMPT)
+        moved = {
+            "vision_embeds": logits(dict(
+                batch, vision_embeds=other_embeds["vision_embeds"])),
+            "equal_planes": logits(dict(batch, positions=equal_planes))}
+    moved = {k: (base - v).abs().max().item() for k, v in moved.items()}
+    log("vlm", check="prefill logits move with the vision embeds and with "
+        "the grid's M-RoPE planes",
+        **{k: f"{v:.3e}" for k, v in moved.items()}, min_change=1e-2)
+    assert all(math.isfinite(v) and v > 1e-2 for v in moved.values()), moved
+    del base, other_embeds
+    sched_session(torch, dev, kernels, model, params, "vlm",
+                  ("continuous", "kv_offload"))
+    del model, params, batch
+    torch.cuda.empty_cache()
+    train_cfg = depth(full, VLM_TRAIN_LAYERS)
+    meta = tfm.init_params(train_cfg, None, torch.bfloat16,
+                           torch.device("meta"))
+    n_params = sum(x.numel() for x in _leaves(meta))
+    need, avail = 1.25 * 8 * n_params, host_available_bytes()
+    log("vlm", train_layers=VLM_TRAIN_LAYERS, train_params=n_params,
+        moments_gb=f"{8 * n_params / 1e9:.2f}",
+        host_available_gb=f"{avail / 1e9:.2f}", can_pin=avail >= need)
+    if avail < need:
+        log("vlm", train="left out: the host cannot pin the moments")
+        return
+    train_modes(torch, dev, "vlm", train_cfg, (("offload", True),),
+                shape=VLM_TRAIN)
 
 if __name__ == "__main__":
     sys.exit(main())

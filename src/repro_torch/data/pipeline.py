@@ -7,7 +7,9 @@ structure, as in the reference: the next token is the previous one
 through a fixed random permutation (drawn from ``seed + 1``), replaced by
 a uniform token with probability ``noise``; ``targets`` are the tokens
 shifted by one. The structure is the reference's; the draws are torch's,
-so the tokens are not JAX's.
+so the tokens are not JAX's. Given a config with a frontend stub, a batch
+also carries the stub's inputs, drawn from a generator of their own (the
+tokens stay those of the same step without them).
 """
 
 from __future__ import annotations
@@ -39,12 +41,8 @@ class SyntheticTokens:
     def batch(self, step: int, cfg: Optional[ModelConfig] = None,
               device: DeviceLike = "cpu") -> Dict[str, torch.Tensor]:
         """The full global batch for ``step``: int32 ``tokens`` and
-        ``targets`` (B, S), made on the CPU and moved to ``device``. The
-        port's models take no frontend inputs, so ``cfg`` (the reference's
-        hook for audio/vision stubs) must have none."""
-        if cfg is not None and cfg.frontend != "none":
-            raise NotImplementedError(
-                f"{cfg.name}: frontend {cfg.frontend!r} is not in the port")
+        ``targets`` (B, S), and with ``cfg`` its frontend stub's inputs
+        (:meth:`_frontend`), made on the CPU and moved to ``device``."""
         b, s, v = self.global_batch, self.seq_len, self.vocab_size
         perm = torch.randperm(v, generator=_generator(self.seed + 1))
         gen = _generator(self.seed, step)
@@ -58,8 +56,34 @@ class SyntheticTokens:
             seq[i] = tok
         seq = seq.T
         tokens = torch.cat([first[:, None], seq[:, :-1]], dim=1)
-        return {"tokens": tokens.to(torch.int32).to(device),
-                "targets": seq.to(torch.int32).to(device)}
+        out = {"tokens": tokens.to(torch.int32),
+               "targets": seq.to(torch.int32)}
+        if cfg is not None:
+            out.update(self._frontend(cfg, _generator(self.seed, step, 1)))
+        return {k: t.to(device) for k, t in out.items()}
+
+    def _frontend(self, cfg: ModelConfig,
+                  gen: torch.Generator) -> Dict[str, torch.Tensor]:
+        """Frontend-stub inputs, fp32 as the reference makes them: audio,
+        ``enc_embeds`` (B, n_frames, D) of 0.1 x N(0, 1); vision, the first
+        max(1, S//8) positions of every row flagged in ``vision_mask`` and
+        given 0.1 x N(0, 1) ``vision_embeds`` (zero elsewhere), with
+        ``positions`` the sequence index in all three M-RoPE planes."""
+        b, s = self.global_batch, self.seq_len
+        if cfg.frontend == "audio":
+            return {"enc_embeds": 0.1 * torch.randn(
+                (b, cfg.encoder.n_frames, cfg.d_model), generator=gen)}
+        if cfg.frontend == "vision":
+            n_vis = max(1, s // 8)
+            mask = torch.zeros((b, s), dtype=torch.bool)
+            mask[:, :n_vis] = True
+            emb = torch.zeros((b, s, cfg.d_model))
+            emb[:, :n_vis] = 0.1 * torch.randn((b, n_vis, cfg.d_model),
+                                               generator=gen)
+            pos = torch.arange(s, dtype=torch.int32).expand(3, b, s)
+            return {"vision_embeds": emb, "vision_mask": mask,
+                    "positions": pos.contiguous()}
+        return {}
 
     def __iter__(self) -> Iterator[Dict[str, torch.Tensor]]:
         step = 0

@@ -1,6 +1,14 @@
-"""Attention mixers, GQA (sliding windows, logit softcap, RoPE) and MLA
-(multi-head latent attention): full-sequence (prefill), chunked prefill
-against an existing cache, and single-token decode.
+"""Attention mixers, GQA (sliding windows, logit softcap, RoPE/M-RoPE),
+MLA (multi-head latent attention) and whisper's cross-attention:
+full-sequence (prefill), chunked prefill against an existing cache, and
+single-token decode.
+
+A cross-attention layer's cache also holds the encoder output's keys and
+values, ``xk``/``xv`` of (B, n_frames, Hkv, D), written once by the
+prefill and read whole (no mask) by every decode step. Non-causal
+attention (the encoder's, and every cross-attention) is plain PyTorch on
+every device, as it stays XLA in the reference: only causal attention
+takes the flash kernel.
 
 MLA caches hold the per-token latent ``ckv`` (B, C, kv_lora_rank) and the
 rotated key part ``krope`` (B, C, qk_rope_head_dim), 3-D leaves where
@@ -41,12 +49,16 @@ def init_attn_params(cfg: ModelConfig, spec: LayerSpec, dtype: torch.dtype,
     d, hd = cfg.d_model, cfg.head_dim
     hq, hkv = cfg.n_heads, cfg.n_kv_heads
     st, ax = tuple(stack), len(stack)
-    return {
-        "wq": dense_init(st + (d, hq * hd), dtype, device, generator, ax),
-        "wk": dense_init(st + (d, hkv * hd), dtype, device, generator, ax),
-        "wv": dense_init(st + (d, hkv * hd), dtype, device, generator, ax),
-        "wo": dense_init(st + (hq * hd, d), dtype, device, generator, ax),
-    }
+
+    def w(*shape):
+        return dense_init(st + shape, dtype, device, generator, ax)
+
+    p = {"wq": w(d, hq * hd), "wk": w(d, hkv * hd), "wv": w(d, hkv * hd),
+         "wo": w(hq * hd, d)}
+    if spec.cross_attn:
+        p.update(xwq=w(d, hq * hd), xwk=w(d, hkv * hd), xwv=w(d, hkv * hd),
+                 xwo=w(hq * hd, d))
+    return p
 
 
 def init_mla_params(cfg: ModelConfig, dtype: torch.dtype,
@@ -90,18 +102,28 @@ def attn_cache_len(cfg: ModelConfig, spec: LayerSpec, max_seq: int,
 def init_attn_cache(cfg: ModelConfig, spec: LayerSpec, batch: int,
                     max_seq: int, dtype: torch.dtype, device: torch.device,
                     swa_override: Optional[int] = None,
+                    enc_frames: Optional[int] = None,
                     stack: Sequence[int] = ()) -> Dict[str, torch.Tensor]:
     c = attn_cache_len(cfg, spec, max_seq, swa_override)
     st = tuple(stack) + (batch, c)
+
+    def zeros(*shape):
+        return torch.zeros(shape, dtype=dtype, device=device)
+
     if spec.mixer == "mla":
         m = cfg.mla
-        return {"ckv": torch.zeros(st + (m.kv_lora_rank,), dtype=dtype,
-                                   device=device),
-                "krope": torch.zeros(st + (m.qk_rope_head_dim,), dtype=dtype,
-                                     device=device)}
-    shape = st + (cfg.n_kv_heads, cfg.head_dim)
-    return {"k": torch.zeros(shape, dtype=dtype, device=device),
-            "v": torch.zeros(shape, dtype=dtype, device=device)}
+        cache = {"ckv": zeros(*st, m.kv_lora_rank),
+                 "krope": zeros(*st, m.qk_rope_head_dim)}
+    else:
+        cache = {"k": zeros(*st, cfg.n_kv_heads, cfg.head_dim),
+                 "v": zeros(*st, cfg.n_kv_heads, cfg.head_dim)}
+    if spec.cross_attn:
+        if enc_frames is None:
+            raise ValueError("a cross-attention layer's cache needs the "
+                             "encoder's frame count")
+        xs = tuple(stack) + (batch, enc_frames, cfg.n_kv_heads, cfg.head_dim)
+        cache["xk"], cache["xv"] = zeros(*xs), zeros(*xs)
+    return cache
 
 
 # ---------------------------------------------------------------------------
@@ -180,9 +202,10 @@ def _project_qkv(cfg: ModelConfig, p: Dict, x: torch.Tensor,
     q = (x @ p["wq"]).reshape(b, s, hq, hd)
     k = (x @ p["wk"]).reshape(b, s, hkv, hd)
     v = (x @ p["wv"]).reshape(b, s, hkv, hd)
-    if cfg.rope_mode == "rope":
-        q = apply_rope(q, positions, cfg.rope_theta)
-        k = apply_rope(k, positions, cfg.rope_theta)
+    if cfg.rope_mode in ("rope", "mrope"):
+        sections = cfg.mrope_sections if cfg.rope_mode == "mrope" else None
+        q = apply_rope(q, positions, cfg.rope_theta, sections)
+        k = apply_rope(k, positions, cfg.rope_theta, sections)
     return q, k, v
 
 
@@ -231,15 +254,55 @@ def attention_full(cfg: ModelConfig, spec: LayerSpec, p: Dict,
     return out @ p["wo"]
 
 
+def cross_attention_kv(cfg: ModelConfig, p: Dict, enc_out: torch.Tensor
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The encoder output's (B,T,D) keys and values, (B,T,Hkv,D) each."""
+    b, t, _ = enc_out.shape
+    hkv, hd = cfg.n_kv_heads, cfg.head_dim
+    return ((enc_out @ p["xwk"]).reshape(b, t, hkv, hd),
+            (enc_out @ p["xwv"]).reshape(b, t, hkv, hd))
+
+
+def _cross_attend(cfg: ModelConfig, p: Dict, x: torch.Tensor,
+                  k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Queries of x (B,S,D) over every frame of k/v (B,T,Hkv,D), no mask,
+    scale hd^-1/2 → (B,S,D)."""
+    b, s, _ = x.shape
+    hq, hd = cfg.n_heads, cfg.head_dim
+    q = (x @ p["xwq"]).reshape(b, s, hq, hd)
+    probs = _masked_softmax(_gqa_scores(q, k) * hd ** -0.5, None)
+    return _gqa_out(probs, v).to(x.dtype).reshape(b, s, hq * hd) @ p["xwo"]
+
+
+def cross_attention_full(cfg: ModelConfig, p: Dict, x: torch.Tensor,
+                         enc_out: torch.Tensor) -> torch.Tensor:
+    """Decoder cross-attention over the encoder output (B,T,D). The
+    encoder output enters through one view, so its gradient from this
+    layer is summed inside the layer (keys and values) before it meets
+    the other layers': the same order whether the layer is differentiated
+    with the others or as one recomputed stage (``offload.policies``)."""
+    k, v = cross_attention_kv(cfg, p, enc_out.view(enc_out.shape))
+    return _cross_attend(cfg, p, x, k, v)
+
+
+def cross_attention_decode(cfg: ModelConfig, p: Dict, x: torch.Tensor,
+                           cache: Dict) -> torch.Tensor:
+    """One token per row (B,1,D) over every frame of the cached ``xk``/
+    ``xv``."""
+    return _cross_attend(cfg, p, x, cache["xk"], cache["xv"])
+
+
 def attention_prefill(cfg: ModelConfig, spec: LayerSpec, p: Dict,
                       x: torch.Tensor, positions: torch.Tensor, cache: Dict,
-                      *, swa_override: Optional[int] = None
+                      *, swa_override: Optional[int] = None,
+                      enc_out: Optional[torch.Tensor] = None
                       ) -> Tuple[torch.Tensor, Dict]:
     """Full causal attention; also fills the layer KV cache in place.
     Tokens t ∈ [0, S) are written to ring slot t % C. K/V are projected
     once and reused for the cache (the reference projects them twice; the
-    values are the same); so are MLA's latent and rotated key. Returns
-    (out, cache)."""
+    values are the same); so are MLA's latent and rotated key. A
+    cross-attention layer also writes the encoder output's keys and values
+    (``xk``/``xv``), as the reference does here. Returns (out, cache)."""
     if spec.mixer == "mla":
         out, ckv, kr = _mla_full(cfg, p, x, positions, with_latent=True)
         _ring_write_seq(cache["ckv"], ckv.to(cache["ckv"].dtype))
@@ -250,6 +313,10 @@ def attention_prefill(cfg: ModelConfig, spec: LayerSpec, p: Dict,
                        x.dtype) @ p["wo"]
     _ring_write_seq(cache["k"], k)
     _ring_write_seq(cache["v"], v)
+    if spec.cross_attn and enc_out is not None:
+        xk, xv = cross_attention_kv(cfg, p, enc_out)
+        cache["xk"].copy_(xk)
+        cache["xv"].copy_(xv)
     return out, cache
 
 

@@ -1,7 +1,8 @@
 """Layer (block) application: pre-norm residual structure over a mixer
 (GQA attention, MLA or Mamba2) and an FFN (SwiGLU, GELU or MoE, whose aux
 loss the forward and prefill paths return), with gemma2-style optional
-post-sublayer norms. One code path per execution mode (forward, prefill,
+post-sublayer norms and whisper-style cross-attention sublayers between the
+mixer and the FFN. One code path per execution mode (forward, prefill,
 decode) so caches stay explicit."""
 
 from __future__ import annotations
@@ -20,20 +21,15 @@ from repro_torch.models.common import apply_norm, norm_params
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """The port runs decoder-only stacks: GQA or MLA attention with a
-    SwiGLU, GELU or MoE FFN (or none), and Mamba2 with no FFN (mamba2, the
-    zamba2 hybrid), under RoPE or no position encoding. It still refuses
-    encoders and frontends (whisper's audio encoder, qwen2-vl's vision
-    embeds), cross-attention, and M-RoPE: they come in later slices."""
+    """The port runs the reference's layer kinds: GQA or MLA attention
+    (with or without cross-attention to an encoder) with a SwiGLU, GELU or
+    MoE FFN (or none), and Mamba2 with no FFN (mamba2, the zamba2 hybrid),
+    under RoPE, M-RoPE, learned (sinusoidal) or no position encoding."""
     bad = []
-    if cfg.encoder is not None or cfg.frontend != "none":
-        bad.append("encoder/frontend")
-    if cfg.rope_mode not in ("rope", "none"):
+    if cfg.rope_mode not in ("rope", "mrope", "learned", "none"):
         bad.append(f"rope_mode={cfg.rope_mode}")
     for seg in cfg.segments:
         for spec in seg.pattern:
-            if spec.cross_attn:
-                bad.append("cross_attn")
             if spec.mixer == "mamba2":
                 if spec.ffn != "none":
                     bad.append(f"mixer=mamba2 ffn={spec.ffn}")
@@ -44,9 +40,7 @@ def check_supported(cfg: ModelConfig) -> None:
                 bad.append(f"ffn={spec.ffn}")
     if bad:
         raise NotImplementedError(
-            f"{cfg.name}: not in the PyTorch port yet: {sorted(set(bad))} "
-            f"(encoders/frontends, cross-attention and M-RoPE come in "
-            f"later slices)")
+            f"{cfg.name}: not in the PyTorch port: {sorted(set(bad))}")
 
 
 # ---------------------------------------------------------------------------
@@ -67,6 +61,8 @@ def init_layer_params(cfg: ModelConfig, spec: LayerSpec, dtype: torch.dtype,
     p: Dict = {"pre_norm": norm_params(cfg, device, stack), "mixer": mixer}
     if spec.post_norms:
         p["post_norm"] = norm_params(cfg, device, stack)
+    if spec.cross_attn:
+        p["cross_norm"] = norm_params(cfg, device, stack)
     if spec.ffn != "none":
         p["ffn_norm"] = norm_params(cfg, device, stack)
         if spec.ffn == "moe":
@@ -86,11 +82,13 @@ def init_layer_params(cfg: ModelConfig, spec: LayerSpec, dtype: torch.dtype,
 def init_layer_cache(cfg: ModelConfig, spec: LayerSpec, batch: int,
                      max_seq: int, dtype: torch.dtype, device: torch.device,
                      swa_override: Optional[int] = None,
+                     enc_frames: Optional[int] = None,
                      stack: Sequence[int] = ()) -> Dict:
     if spec.mixer == "mamba2":
         return ssm_mod.init_mamba_cache(cfg, batch, dtype, device, stack)
     return attn.init_attn_cache(cfg, spec, batch, max_seq, dtype, device,
-                                swa_override=swa_override, stack=stack)
+                                swa_override=swa_override,
+                                enc_frames=enc_frames, stack=stack)
 
 
 # ---------------------------------------------------------------------------
@@ -118,13 +116,28 @@ def _ffn_out(cfg: ModelConfig, spec: LayerSpec, p: Dict, x: torch.Tensor
     return h, aux
 
 
+def _cross(cfg: ModelConfig, p: Dict, x: torch.Tensor, kv) -> torch.Tensor:
+    """The residual stream after the cross-attention sublayer: ``kv`` is
+    the encoder output (B,T,D), or a decode step's cache with ``xk``/
+    ``xv``."""
+    h = apply_norm(cfg, p["cross_norm"], x)
+    if isinstance(kv, dict):
+        return x + attn.cross_attention_decode(cfg, p["mixer"], h, kv)
+    return x + attn.cross_attention_full(cfg, p["mixer"], h, kv)
+
+
 def _post_mixer(cfg: ModelConfig, spec: LayerSpec, p: Dict, x: torch.Tensor,
-                h: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+                h: torch.Tensor, cross=None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The rest of a layer after its mixer's output ``h``: the mixer's
-    post-norm, the residual add and the FFN. Returns (x, aux_loss)."""
+    post-norm, the residual add, the cross-attention sublayer (over
+    ``cross``, the encoder output or the decode cache, when the layer has
+    one) and the FFN. Returns (x, aux_loss)."""
     if spec.post_norms:
         h = apply_norm(cfg, p["post_norm"], h)
     x = x + h
+    if spec.cross_attn and cross is not None:
+        x = _cross(cfg, p, x, cross)
     if spec.ffn == "none":
         return x, _zero_aux(x)
     h, aux = _ffn_out(cfg, spec, p, x)
@@ -132,12 +145,18 @@ def _post_mixer(cfg: ModelConfig, spec: LayerSpec, p: Dict, x: torch.Tensor,
 
 
 def apply_layer(cfg: ModelConfig, spec: LayerSpec, p: Dict, x: torch.Tensor,
-                positions: torch.Tensor, *, causal: bool = True,
+                positions: torch.Tensor, *,
+                enc_out: Optional[torch.Tensor] = None, causal: bool = True,
                 swa_override: Optional[int] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Forward without a cache. Returns (x, aux_loss). The mixer's output,
     the FFN's and the layer's are the tag points ``attn_out``, ``mlp_out``
-    and ``resid`` (``models.remat``), as in the reference."""
+    and ``resid`` (``models.remat``), as in the reference. A
+    cross-attention layer attends over ``enc_out`` between the two; the
+    cross sublayer runs with the FFN (the values between ``attn_out`` and
+    ``mlp_out``, which the reference recomputes), and takes ``enc_out`` as
+    an input of its own, never closed over, so an offloaded stage carries
+    its gradient."""
 
     def mixer(p: Dict, x: torch.Tensor) -> torch.Tensor:
         h = apply_norm(cfg, p["pre_norm"], x)
@@ -150,32 +169,42 @@ def apply_layer(cfg: ModelConfig, spec: LayerSpec, p: Dict, x: torch.Tensor,
             h = apply_norm(cfg, p["post_norm"], h)
         return h
 
-    def ffn(p: Dict, x: torch.Tensor, h: torch.Tensor
+    def ffn(p: Dict, x: torch.Tensor, h: torch.Tensor, *enc: torch.Tensor
             ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         x = x + h
+        if enc:
+            x = _cross(cfg, p, x, enc[0])
         h, aux = _ffn_out(cfg, spec, p, x)
         return h, x, aux
 
+    cross = (enc_out,) if spec.cross_attn and enc_out is not None else ()
     h = remat.sublayer("attn_out", mixer, p, x)
-    aux = _zero_aux(x)
     if spec.ffn != "none":
-        h, x, aux = remat.sublayer("mlp_out", ffn, p, x, h)
-    return remat.tag(x + h, "resid"), aux
+        h, x, aux = remat.sublayer("mlp_out", ffn, p, x, h, *cross)
+        return remat.tag(x + h, "resid"), aux
+    x = x + h
+    if cross:
+        x = _cross(cfg, p, x, enc_out)
+    return remat.tag(x, "resid"), _zero_aux(x)
 
 
 def apply_layer_prefill(cfg: ModelConfig, spec: LayerSpec, p: Dict,
                         x: torch.Tensor, positions: torch.Tensor,
-                        cache: Dict, *, swa_override: Optional[int] = None
+                        cache: Dict, *,
+                        enc_out: Optional[torch.Tensor] = None,
+                        swa_override: Optional[int] = None
                         ) -> Tuple[torch.Tensor, torch.Tensor, Dict]:
-    """Forward over the prompt, filling ``cache`` in place.
+    """Forward over the prompt, filling ``cache`` in place (a
+    cross-attention layer's ``xk``/``xv`` from ``enc_out`` too).
     Returns (x, aux_loss, cache)."""
     h = apply_norm(cfg, p["pre_norm"], x)
     if spec.mixer == "mamba2":
         h, cache = ssm_mod.mamba_prefill(cfg, p["mixer"], h, cache)
     else:
         h, cache = attn.attention_prefill(cfg, spec, p["mixer"], h, positions,
-                                          cache, swa_override=swa_override)
-    x, aux = _post_mixer(cfg, spec, p, x, h)
+                                          cache, swa_override=swa_override,
+                                          enc_out=enc_out)
+    x, aux = _post_mixer(cfg, spec, p, x, h, enc_out)
     return x, aux, cache
 
 
@@ -214,5 +243,6 @@ def apply_layer_decode(cfg: ModelConfig, spec: LayerSpec, p: Dict,
         h, cache = attn.attention_decode(cfg, spec, p["mixer"], h, pos,
                                          positions, cache,
                                          swa_override=swa_override)
-    x, _ = _post_mixer(cfg, spec, p, x, h)   # decode drops the aux loss
+    # decode drops the aux loss; cross-attention reads the cached frames
+    x, _ = _post_mixer(cfg, spec, p, x, h, cache)
     return x, cache

@@ -1,8 +1,9 @@
-"""Shared building blocks: norms, rotary embeddings, softcap, init."""
+"""Shared building blocks: norms, rotary embeddings (RoPE / M-RoPE),
+softcap, init."""
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Tuple
 
 import torch
 
@@ -96,13 +97,32 @@ def rope_freqs(head_dim: int, theta: float, device: torch.device) -> torch.Tenso
                                          device=device) / half))
 
 
-def apply_rope(x: torch.Tensor, positions: torch.Tensor,
-               theta: float) -> torch.Tensor:
-    """Rotate ``x`` of shape (B, S, H, D) by ``positions`` (B, S)."""
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
+               mrope_sections: Optional[Tuple[int, int, int]] = None
+               ) -> torch.Tensor:
+    """Rotate ``x`` of shape (B, S, H, D) by ``positions``: (B, S) for
+    standard RoPE, or (3, B, S) for M-RoPE [arXiv:2409.12191], whose
+    planes carry temporal/height/width coordinates while
+    ``mrope_sections`` splits the D//2 frequency channels among them.
+    The reference picks each channel's plane by a one-hot einsum in fp32,
+    an exact select; here each section is sliced from its plane, which
+    gives the same bits."""
     d = x.shape[-1]
     half = d // 2
     inv = rope_freqs(d, theta, x.device)
-    ang = positions.float()[..., None] * inv[None, None, :]   # (B, S, half)
+    if mrope_sections is not None:
+        if positions.dim() != 3 or positions.shape[0] != 3:
+            raise ValueError(f"M-RoPE takes (3, B, S) positions, got "
+                             f"{tuple(positions.shape)}")
+        if sum(mrope_sections) != half:
+            raise ValueError(f"sections {tuple(mrope_sections)} do not sum "
+                             f"to {half}")
+        ang_all = positions.float()[..., None] * inv          # (3, B, S, half)
+        t, h = mrope_sections[0], mrope_sections[0] + mrope_sections[1]
+        ang = torch.cat([ang_all[0, ..., :t], ang_all[1, ..., t:h],
+                         ang_all[2, ..., h:]], dim=-1)        # (B, S, half)
+    else:
+        ang = positions.float()[..., None] * inv[None, None, :]  # (B, S, half)
     sin = torch.sin(ang)[..., None, :]                       # (B, S, 1, half)
     cos = torch.cos(ang)[..., None, :]
     x1, x2 = x[..., :half], x[..., half:]

@@ -1,6 +1,11 @@
 """Public model facade: build once from a ``ModelConfig``, then call
 ``init`` / ``loss`` / ``forward`` / ``prefill`` / ``prefill_chunk`` /
-``decode_step``, or ask ``cache_specs`` for a cache's shapes and types."""
+``decode_step``, or ask ``cache_specs`` for a cache's shapes and types.
+
+Modality frontends are stubs, as in the reference: an audio model's batch
+carries ``enc_embeds`` (precomputed conv/mel frames, (B, n_frames, D)); a
+vision model's carries aligned ``vision_embeds`` (B,S,D) with their
+``vision_mask`` (B,S) and M-RoPE ``positions`` (3,B,S)."""
 
 from __future__ import annotations
 
@@ -12,6 +17,15 @@ import torch
 from repro_torch.configs.base import InputShape, ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import transformer as tfm
+
+
+#: a batch's model inputs beside its tokens (the frontend stubs' and the
+#: M-RoPE positions)
+FRONTEND_KEYS = ("positions", "enc_embeds", "vision_embeds", "vision_mask")
+
+
+def _frontend(batch: Dict) -> Dict:
+    return {k: batch.get(k) for k in FRONTEND_KEYS}
 
 
 def _xent(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
@@ -47,7 +61,7 @@ class Model:
     def forward(self, params: Dict, batch: Dict, remat_policy=None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         return tfm.forward(self.cfg, params, batch["tokens"],
-                           positions=batch.get("positions"),
+                           **_frontend(batch),
                            swa_override=self.swa_override,
                            remat_policy=remat_policy)
 
@@ -61,7 +75,7 @@ class Model:
     def prefill(self, params: Dict, batch: Dict,
                 cache: Dict) -> Tuple[torch.Tensor, Dict]:
         return tfm.prefill(self.cfg, params, batch["tokens"], cache,
-                           positions=batch.get("positions"),
+                           **_frontend(batch),
                            swa_override=self.swa_override)
 
     def prefill_chunk(self, params: Dict, batch: Dict, offset: int,

@@ -62,9 +62,11 @@ def tree_map_with_path(fn: Callable[[Tuple, Any], Any], tree: Any,
 
 
 def is_stacked(path: Tuple) -> bool:
-    """A leaf stacked along a leading ``repeats`` dimension (every leaf
-    under ``segments``, as the model lays its layers out)."""
-    return bool(path) and path[0] == "segments"
+    """A leaf stacked along a leading layer dimension: every leaf under
+    ``segments`` (a segment's ``repeats``) and under the encoder's
+    ``layers``, as the model lays its layers out."""
+    return bool(path) and (path[0] == "segments"
+                           or tuple(path[:2]) == ("encoder", "layers"))
 
 
 #: the most elements one slice holds: a larger (leaf, layer) slice (an

@@ -53,6 +53,11 @@ the same reason a resident DECODE row that is preempted is copied out of
 its slot (the reference keeps a slice, which JAX copies), and prefix pages
 donated from the batch cache are views that the pool's put copies.
 
+Requests carry tokens only, as the reference's do: an M-RoPE model
+(qwen2-vl) runs text-only, its positions the sequence index in all three
+planes, and an encoder model (whisper), whose prefill needs its
+frontend's frames, is refused.
+
 Time is a virtual clock (1.0 per step) so arrival traces and latency
 measurements are deterministic; wall-clock throughput is the caller's to
 measure around ``run``.
@@ -150,6 +155,13 @@ class ContinuousScheduler:
                  prefix_cache: Optional[PrefixCacheManager] = None,
                  tracer=None,
                  metrics: Optional[MetricsRegistry] = None) -> None:
+        if model.cfg.encoder is not None:
+            # the reference's prefill fails on the missing enc_embeds at
+            # the first admission; the port refuses up front
+            raise ValueError(
+                f"model {model.cfg.name!r} needs its encoder frontend's "
+                "inputs (enc_embeds), which the scheduler's text-only "
+                "requests do not carry; serve it with ServeEngine")
         self.model = model
         self.params = params
         self.cfg = cfg

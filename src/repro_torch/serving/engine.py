@@ -28,7 +28,7 @@ from typing import Any, Callable, Dict, Iterator, List, Optional, Tuple
 import torch
 
 from repro_torch.device import device_of
-from repro_torch.models.model import Model
+from repro_torch.models.model import FRONTEND_KEYS, Model
 from repro_torch.obs.trace import NULL_TRACER
 from repro_torch.pool import MemoryPoolManager, auto_depth
 from repro_torch.serving.sampling import sample_token
@@ -168,7 +168,10 @@ class ServeEngine:
                  *, temperature: float = 0.0, top_k: Optional[int] = None,
                  seed: int = 0) -> torch.Tensor:
         """batch["tokens"]: (B, S_prompt) int → generated ids
-        (B, max_new_tokens) int32 on the engine's device."""
+        (B, max_new_tokens) int32 on the engine's device. The batch's
+        frontend entries (``enc_embeds``; ``vision_embeds``,
+        ``vision_mask`` and M-RoPE ``positions``) go to the prefill, as
+        the reference passes its whole batch."""
         tokens = batch["tokens"]
         b, s0 = tokens.shape
         if s0 + max_new_tokens > self.max_seq:
@@ -178,18 +181,20 @@ class ServeEngine:
                               batch=b, prompt_len=s0,
                               max_new_tokens=max_new_tokens), \
                 torch.inference_mode():
-            return self._generate(tokens.to(self.device), max_new_tokens,
+            inputs = {k: batch[k].to(self.device)
+                      for k in ("tokens",) + FRONTEND_KEYS
+                      if batch.get(k) is not None}
+            return self._generate(inputs, max_new_tokens,
                                   temperature=temperature, top_k=top_k,
                                   seed=seed)
 
-    def _generate(self, tokens: torch.Tensor, max_new_tokens: int, *,
-                  temperature: float, top_k: Optional[int],
+    def _generate(self, batch: Dict[str, torch.Tensor], max_new_tokens: int,
+                  *, temperature: float, top_k: Optional[int],
                   seed: int) -> torch.Tensor:
-        b, s0 = tokens.shape
+        b, s0 = batch["tokens"].shape
         cache = self.model.init_cache(b, self.max_seq, self.cache_dtype,
                                       device=self.device)
-        logits, cache = self.model.prefill(self.params, {"tokens": tokens},
-                                           cache)
+        logits, cache = self.model.prefill(self.params, batch, cache)
         self.stats.prefill_tokens += b * s0
 
         gen = None

@@ -55,6 +55,8 @@ def cuda_device():
     (1, 2, 2, 128, 128, None, None, True),       # head_dim 128
     (1, 4, 2, 70, 96, None, None, False),        # non-causal
     (4, 32, 32, 512, 112, None, None, True),     # zamba2 prefill, D=112
+    (4, 16, 16, 64, 64, None, None, True),       # whisper decoder prompt
+    (4, 64, 8, 512, 128, None, None, True),      # qwen2-vl prefill, G = 8
 ])
 def test_flash_kernel_matches_plain_on_card(cuda_device, dtype, b, hq, hkv,
                                             s, d, window, cap, causal):
@@ -130,6 +132,8 @@ def test_flash_instance_is_fixed_by_dtype_head_dim_and_alignment(
     (4, 16, 8, 256, (5, 1, 9, 3), 7, 50.0),       # gemma2, scrambled table
     (2, 4, 2, 32, (), 0, None),                   # tail only, empty tail
     (2, 8, 2, 32, (3, 0), 32, None),              # full tail
+    (4, 16, 16, 64, tuple(range(16)), 19, None),  # whisper's heads
+    (4, 64, 8, 128, tuple(range(16)), 19, None),  # qwen2-vl's, G = 8
 ])
 def test_paged_kernel_matches_plain_on_card(cuda_device, dtype, b, hq, hkv, d,
                                             table, tail_len, cap):
@@ -217,6 +221,8 @@ def test_paged_kernel_splits_match_plain_on_card(cuda_device, dtype, b, hq,
     (3, 6, 1, 48, 64, 20, 30.0),           # G = 6, part of the ring empty
     (2, 4, 2, 10, 32, 7, None),            # C smaller than one split
     (2, 4, 2, 64, 32, -1, None),           # every slot masked: mean of v
+    (4, 16, 16, 448, 64, 447, None),       # whisper decode, full ring
+    (4, 64, 8, 576, 128, 520, None),       # qwen2-vl decode, G = 8
 ])
 def test_decode_kernel_matches_plain_on_card(cuda_device, dtype, b, hq, hkv,
                                              c, d, pos, cap):
@@ -326,6 +332,8 @@ PER_ROW = [
     (3, 16, 8, 64, 256, (63, 64, 200), 50.0),           # gemma2-like, cap
     (2, 4, 2, 64, 32, (0, 10), None),                   # one valid slot
     (2, 4, 2, 10, 32, (7, 12), 30.0),                   # C below a split
+    (4, 16, 16, 448, 64, (191, 63, 0, 447), None),      # whisper's heads
+    (4, 64, 8, 576, 128, (520, 37, 0, 575), None),      # qwen2-vl's, G = 8
 ]
 
 

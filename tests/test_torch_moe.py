@@ -1,5 +1,6 @@
 """The port's MoE FFN (``repro_torch.models.moe``) and MLA layer against the
-JAX package's, on the CPU in fp32, and what the port still refuses.
+JAX package's, on the CPU in fp32, and the configs of the port's later
+slices.
 
 Inputs come from numpy with a seed; the JAX parameters are carried across
 with ``repro_torch.convert``. ``moe_ffn`` runs at granite-moe-3b-a800m's
@@ -27,7 +28,6 @@ from repro.configs import REGISTRY as JAX_REGISTRY
 from repro.models import blocks as jax_blocks
 from repro.models import moe as jax_moe
 from repro_torch.configs import REGISTRY as TORCH_REGISTRY
-from repro_torch.configs import base as torch_base
 from repro_torch.convert import params_from_numpy
 from repro_torch.models import blocks as torch_blocks
 from repro_torch.models import moe as torch_moe
@@ -283,39 +283,17 @@ def test_moe_and_mla_trees_keep_their_types_both_ways(arch):
 
 
 # ---------------------------------------------------------------------------
-# what the port still refuses
+# the configs of the port's later slices
 # ---------------------------------------------------------------------------
 
 
-def _port_config(obj):
-    """A JAX-package config rebuilt from the port's own dataclasses."""
-    if dataclasses.is_dataclass(obj):
-        cls = getattr(torch_base, type(obj).__name__)
-        return cls(**{f.name: _port_config(getattr(obj, f.name))
-                      for f in dataclasses.fields(obj)})
-    if isinstance(obj, tuple):
-        return tuple(_port_config(v) for v in obj)
-    return obj
-
-
-@pytest.mark.parametrize("arch,refused", [
-    ("whisper-medium", ("encoder/frontend", "cross_attn")),
-    ("qwen2-vl-72b", ("encoder/frontend", "rope_mode=mrope"))])
-def test_encoders_frontends_cross_attention_and_mrope_are_refused(arch,
-                                                                  refused):
-    cfg = _port_config(JAX_REGISTRY[arch].reduced())
-    assert dataclasses.asdict(cfg) == \
-        dataclasses.asdict(JAX_REGISTRY[arch].reduced())
-    with pytest.raises(NotImplementedError) as e:
-        torch_blocks.check_supported(cfg)
-    for what in refused:
-        assert what in str(e.value)
-
-
 @pytest.mark.parametrize("arch", ["codeqwen1.5-7b", GRANITE, "mixtral-8x22b",
-                                  "minicpm3-4b"])
+                                  "minicpm3-4b", "whisper-medium",
+                                  "qwen2-vl-72b"])
 def test_the_new_configs_are_supported_at_full_size_and_reduced(arch):
     cfg = TORCH_REGISTRY[arch]
     assert dataclasses.asdict(cfg) == dataclasses.asdict(JAX_REGISTRY[arch])
+    assert dataclasses.asdict(cfg.reduced()) == \
+        dataclasses.asdict(JAX_REGISTRY[arch].reduced())
     torch_blocks.check_supported(cfg)
     torch_blocks.check_supported(cfg.reduced())
