@@ -161,14 +161,32 @@ non-zero exit):
    (text only) through the session in ``continuous`` and ``kv_offload``;
    four training steps at 2 layers (B=1, S=512, vision inputs) in
    ``offload`` + ``offload_opt_state``.
+16. mesh   — (runs after phase 5) phase 3's phi3 weights placed as
+   ``DTensor``s on a 1×1 ("data", "model") mesh on the card
+   (``launch.mesh.make_debug_mesh``, ``launch.shardings``,
+   ``axis_rules(DEFAULT_RULES, mesh)``), the cache too: a prefill of B=4
+   × 512, 16 greedy decode steps and ``Model.loss`` at B=2 × 512 equal
+   the same calls outside the rules bit for bit, with the same flash and
+   ring launches in each; ms a step under the mesh beside outside it.
+17. roofline — (after phase 16) ``roofline.roofline_from_trace`` over
+   phi3's prefill and one decode step under ``H100``: the three terms,
+   the dominant one, ``model_flops``, the useful-FLOP ratio, beside the
+   calls' measured ms (a print, not a gate).
+18. moe_mesh — (after phase 11) granite-moe-3b-a800m at full width:
+   ``moe_ffn`` of one layer over B=4 × 512 through ``_moe_ffn_sharded``
+   under the 1×1 mesh against the local path, out and aux bit for bit;
+   then a full-depth prefill under the mesh, logits bit for bit.
+19. dryrun — (last) ``python -m repro_torch.launch.dryrun`` for six
+   (arch × shape × mesh) combinations, one subprocess each, all at once:
+   each prints ``OK``; per-device argument GB and the three terms.
 
 Output: the card's name and power limit, one line per phase (and one with
 its seconds), the total
 wall time, a JSON line ``{"kernels": [...]}`` and, last, ``{"ok": true,
 "device": {...}}``. The
-launch counts in the kernels line are the sums over phases 3 to 15 of each
+launch counts in the kernels line are the sums over phases 3 to 18 of each
 phase's own count (the train phase's and the training of phases 11, 14
-and 15 are 0):
+and 15 are 0; phase 17 counts nothing):
 every count is set to 0 just before a phase drives the port and read just
 after. Without a CUDA device, or without the port
 beside this file, it prints no result and exits with 2.
@@ -270,6 +288,9 @@ FRONTEND_HEADS = (("whisper", 16, 16, 64, 64, 448, 447, (191, 63, 0, 447)),
                   ("qwen2-vl", 64, 8, 128, PROMPT, MAX_SEQ, PROMPT + 8,
                    SCHED_ROWS))
 
+# the mesh phase: phase 3's phi3 under a 1×1 mesh, 16 greedy decode steps
+MESH_DECODE_STEPS = 16
+
 FLASH = {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention.py:73"}
@@ -340,17 +361,22 @@ def main() -> int:
     torch.cuda.empty_cache()
     log("session", allocated_before_gb=f"{before / 1e9:.3f}",
         allocated_after_gb=f"{torch.cuda.memory_allocated() / 1e9:.3f}")
-    del model, params, runs
+    del runs
+    run("mesh", phase_mesh, torch, dev, kernels, model, params)
+    run("roofline", phase_roofline, torch, dev, model, params)
+    del model, params
     torch.cuda.empty_cache()
     run("train", phase_train, torch, dev)
     run("paged", phase_paged, torch, dev, kernels)
     run("hybrid", phase_hybrid, torch, dev, kernels)
     run("ssm", phase_ssm, torch, dev, kernels)
     run("moe", phase_moe, torch, dev, kernels)
+    run("moe_mesh", phase_moe_mesh, torch, dev, kernels)
     run("mla", phase_mla, torch, dev, kernels)
     run("codeqwen", phase_codeqwen, torch, dev, kernels)
     run("whisper", phase_whisper, torch, dev, kernels)
     run("vlm", phase_vlm, torch, dev, kernels)
+    run("dryrun", phase_dryrun, torch)
     for k in kernels.values():
         assert k["launches"] > 0, f"{k['name']} never launched on a path"
     log("total", seconds=f"{time.perf_counter() - t_start:.2f}")
@@ -3143,9 +3169,11 @@ def phase_whisper(torch, dev, kernels) -> None:
     cfg = REGISTRY[WHISPER_ARCH]
 
     def frontend(gen):
-        return {"enc_embeds": (0.1 * torch.randn(
+        # fp32, as the reference's frontend makes them: the encoder runs
+        # in fp32 over the bf16 weights, as the reference promotes
+        return {"enc_embeds": 0.1 * torch.randn(
             BATCH, cfg.encoder.n_frames, cfg.d_model, device=dev,
-            generator=gen)).to(torch.bfloat16)}
+            generator=gen)}
 
     metrics = {}
     model, params, batch = serve(torch, dev, kernels, WHISPER_ARCH,
@@ -3311,6 +3339,352 @@ def phase_vlm(torch, dev, kernels) -> None:
         return
     train_modes(torch, dev, "vlm", train_cfg, (("offload", True),),
                 shape=VLM_TRAIN)
+
+
+# ---------------------------------------------------------------------------
+# 16. mesh, 17. roofline, 18. moe_mesh, 19. dryrun
+# ---------------------------------------------------------------------------
+
+#: the dry-run's combinations: (arch, shape, multi-pod)
+DRYRUN_COMBOS = (("mamba2-370m", "decode_32k", False),
+                 ("phi3-mini-3.8b", "train_4k", False),
+                 ("granite-moe-3b-a800m", "train_4k", False),
+                 ("gemma2-9b", "prefill_32k", False),
+                 ("qwen2-vl-72b", "decode_32k", False),
+                 ("phi3-mini-3.8b", "train_4k", True))
+DRYRUN_TIMEOUT = 300
+
+
+def _local(t):
+    """A DTensor's whole value (a plain tensor as it is)."""
+    return t.full_tensor() if hasattr(t, "full_tensor") else t
+
+
+def phase_mesh(torch, dev, kernels, model, params) -> None:
+    """phi3-mini at full width and depth (phase 3's weights) on a 1×1
+    ("data", "model") mesh on the card: the weights placed as ``DTensor``s
+    by ``launch.shardings`` under ``axis_rules(DEFAULT_RULES, mesh)``, the
+    cache too. A prefill of B=4 × 512 and 16 greedy decode steps, and
+    ``Model.loss`` at B=2, S=512: logits, tokens and loss equal the same
+    calls outside the rules bit for bit, and each run launches flash once
+    per layer per prefill and the ring kernel once per layer per decode
+    step, under the mesh as outside it. ms a step under the mesh beside
+    outside it: the ``DTensor`` dispatch is host work."""
+    from contextlib import nullcontext
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import close_mesh, make_debug_mesh
+    from repro_torch.launch.shardings import (cache_shardings,
+                                              param_shardings, place)
+    from repro_torch.sharding.rules import DEFAULT_RULES, axis_rules
+
+    cfg = model.cfg
+    n_attn, _ = mixers(cfg)
+    bf16 = torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(21)
+    tokens = torch.randint(0, cfg.vocab_size, (BATCH, PROMPT), generator=gen,
+                           device=dev, dtype=torch.int32)
+    tb, ts = TRAIN_BATCH, TRAIN_SEQ
+    train = {"tokens": torch.randint(0, cfg.vocab_size, (tb, ts),
+                                     generator=gen, device=dev,
+                                     dtype=torch.int32)}
+    train["targets"] = torch.roll(train["tokens"], -1, dims=1)
+    steps = MESH_DECODE_STEPS
+    mesh = make_debug_mesh((1, 1))
+    rules = dict(DEFAULT_RULES)
+    try:
+        placed = place(params, param_shardings(params, mesh, rules), mesh)
+        log("mesh", mesh=str(tuple(mesh.shape)), device=mesh.device_type,
+            placed_leaves=len(list(_leaves(placed))),
+            wq_placements=str(placed["segments"][0]["p0"]["mixer"][
+                "wq"].placements))
+
+        def decode(weights, under):
+            cache = model.init_cache(BATCH, PROMPT + steps, bf16, dev)
+            if under:
+                cache = place(cache, cache_shardings(cache, mesh, rules),
+                              mesh)
+            ctx = axis_rules(rules, mesh) if under else nullcontext()
+            with torch.no_grad(), ctx:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                lg, _ = model.prefill(weights, {"tokens": tokens}, cache)
+                logits = [_local(lg)]
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                for i in range(steps):
+                    nxt = logits[-1][:, -1].argmax(-1).to(torch.int32)[:, None]
+                    lg, _ = model.decode_step(weights, cache, nxt, PROMPT + i)
+                    logits.append(_local(lg))
+                torch.cuda.synchronize()
+                t2 = time.perf_counter()
+            return logits, (t1 - t0) * 1e3, (t2 - t1) / steps * 1e3
+
+        def loss(weights, under):
+            ctx = axis_rules(rules, mesh) if under else nullcontext()
+            with torch.no_grad(), ctx:
+                out = _local(model.loss(weights, train))
+                torch.cuda.synchronize()
+            return out
+
+        ops.reset_launch_counts()
+        want, _, _ = decode(params, False)
+        want_loss = loss(params, False)
+        plain_counts = ops.launch_counts()
+        ops.reset_launch_counts()
+        got, _, _ = decode(placed, True)
+        got_loss = loss(placed, True)
+        mesh_counts = ops.launch_counts()
+        for name, n in mesh_counts.items():
+            kernels[name]["launches"] += n
+        expect = {"flash_attention": 2 * n_attn, "ssd_scan": 0,
+                  "paged_decode_attention": 0,
+                  "decode_attention": n_attn * steps}
+        log("mesh", plain_launches=json.dumps(plain_counts),
+            mesh_launches=json.dumps(mesh_counts))
+        assert plain_counts == expect, (plain_counts, expect)
+        assert mesh_counts == plain_counts, (mesh_counts, plain_counts)
+        same = [bool(torch.equal(a, b)) for a, b in zip(got, want)]
+        toks_w = torch.cat([l[:, -1].argmax(-1)[:, None] for l in want], 1)
+        toks_g = torch.cat([l[:, -1].argmax(-1)[:, None] for l in got], 1)
+        log("mesh", check="under the mesh vs outside, bit for bit",
+            logits_equal=f"{sum(same)}/{len(same)}",
+            tokens_equal=bool(torch.equal(toks_g, toks_w)),
+            loss=f"{want_loss.item():.6f}",
+            loss_equal=bool(torch.equal(got_loss, want_loss)),
+            first_tokens=toks_w[0, :8].tolist())
+        assert all(same) and torch.equal(toks_g, toks_w)
+        assert torch.equal(got_loss, want_loss)
+        assert bool(torch.isfinite(want_loss)) and want_loss.item() > 0
+        # ms a step: the second run of each, warm
+        _, pre_plain, dec_plain = decode(params, False)
+        _, pre_mesh, dec_mesh = decode(placed, True)
+        log("mesh", prefill_ms=f"{pre_plain:.2f}",
+            mesh_prefill_ms=f"{pre_mesh:.2f}",
+            decode_ms_per_step=f"{dec_plain:.2f}",
+            mesh_decode_ms_per_step=f"{dec_mesh:.2f}",
+            dtensor_overhead_ms_per_step=f"{dec_mesh - dec_plain:.2f}",
+            dtensor_overhead_ms_prefill=f"{pre_mesh - pre_plain:.2f}")
+        del placed, want, got
+    finally:
+        close_mesh()
+    torch.cuda.empty_cache()
+
+
+def phase_roofline(torch, dev, model, params) -> None:
+    """The counterpart of ``roofline_from_compiled``
+    (``roofline.roofline_from_trace``) over phi3's full-width prefill
+    (B=4, 512) and one decode step on the card, under ``H100``: compute,
+    memory and collective seconds, the dominant term, ``model_flops`` and
+    the useful-FLOP ratio; beside them the same calls' measured ms (host
+    clock around a synchronize) as a share of the largest term. A print,
+    not a gate. The flash and ring kernels' own work lies outside the
+    dispatcher, so the trace's terms leave it out: it is counted here from
+    the shapes, as the kernels phase counts each kernel's bound (flash
+    reads q, k, v and writes o, causal; the ring kernel reads q and the
+    slots that hold a token and writes o), and the share is taken of the
+    roofline with it."""
+    from repro_torch.core.costmodel import H100
+    from repro_torch.roofline import roofline_from_trace
+
+    cfg = model.cfg
+    bf16 = torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(22)
+    tokens = torch.randint(0, cfg.vocab_size, (BATCH, PROMPT), generator=gen,
+                           device=dev, dtype=torch.int32)
+    cache = model.init_cache(BATCH, MAX_SEQ, bf16, dev)
+    weight_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+    cache_bytes = sum(t.numel() * t.element_size() for t in _leaves(cache))
+    nxt = torch.zeros((BATCH, 1), dtype=torch.int32, device=dev)
+    n_attn, _ = mixers(cfg)
+    hq, hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    rows = min(PROMPT + 1, MAX_SEQ)
+    elt = torch.finfo(bf16).bits // 8
+    kernel_work = {      # (bytes, flops) of the kernels' launches
+        "prefill": (n_attn * 2 * BATCH * PROMPT * (hq + hkv) * d * elt,
+                    n_attn * 4 * BATCH * hq * d * PROMPT * (PROMPT + 1) / 2),
+        "decode": (n_attn * (2 * BATCH * hq * d + 2 * BATCH * rows * hkv * d)
+                   * elt, n_attn * 4 * BATCH * hq * rows * d)}
+    calls = {
+        "prefill": (lambda: model.prefill(params, {"tokens": tokens}, cache),
+                    BATCH * PROMPT),
+        "decode": (lambda: model.decode_step(params, cache, nxt, PROMPT),
+                   BATCH)}
+    with torch.inference_mode():
+        for name, (fn, n_tok) in calls.items():
+            _, terms = roofline_from_trace(
+                fn, cfg=cfg, tokens=n_tok, train=False, hw=H100,
+                arg_bytes=weight_bytes + cache_bytes)
+            fn()
+            walls = [synced_s(torch, fn)[1] * 1e3 for _ in range(3)]
+            ms = sorted(walls)[1]
+            k_bytes, k_flops = kernel_work[name]
+            compute_s = (terms.flops + k_flops) / H100.flops
+            memory_s = (terms.hbm_bytes + k_bytes) / H100.hbm_bw
+            top = max(compute_s, memory_s, terms.collective_s) * 1e3
+            r = terms.row()
+            log("roofline", call=name, tokens=n_tok,
+                compute_s=f"{r['compute_s']:.6e}",
+                memory_s=f"{r['memory_s']:.6e}",
+                collective_s=f"{r['collective_s']:.6e}",
+                dominant=r["dominant"], flops=f"{r['flops']:.4e}",
+                hbm_bytes=f"{r['hbm_bytes']:.4e}",
+                model_flops=f"{r['model_flops']:.4e}",
+                useful_flops_ratio=f"{r['useful_flops_ratio']:.4f}",
+                peak_bytes_per_device=f"{r['peak_bytes_per_device']:.4e}",
+                kernel_bytes=f"{k_bytes:.4e}", kernel_flops=f"{k_flops:.4e}",
+                with_kernels_compute_s=f"{compute_s:.6e}",
+                with_kernels_memory_s=f"{memory_s:.6e}",
+                measured_ms=f"{ms:.3f}", roofline_ms=f"{top:.3f}",
+                roofline_over_measured=f"{top / ms:.3f}")
+            assert terms.flops > 0 and terms.hbm_bytes > 0
+            assert terms.coll_bytes == 0      # one device: no collective
+    del cache
+    torch.cuda.empty_cache()
+
+
+def phase_moe_mesh(torch, dev, kernels) -> None:
+    """granite-moe-3b-a800m at full width (40 experts, top-8, d_model 1536)
+    under the 1×1 mesh: ``moe_ffn`` on one layer's weights and a B=4 × 512
+    activation through ``_moe_ffn_sharded`` against the local path (out
+    and aux bit for bit), then one full-depth prefill under the mesh
+    against outside it (logits bit for bit, tokens equal, flash once per
+    layer in each)."""
+    from repro_torch.configs import REGISTRY
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import close_mesh, make_debug_mesh
+    from repro_torch.launch.shardings import (cache_shardings,
+                                              param_shardings, place)
+    from repro_torch.models import moe
+    from repro_torch.models.model import build_model
+    from repro_torch.models.transformer import _index
+    from repro_torch.sharding.rules import DEFAULT_RULES, axis_rules
+
+    cfg = REGISTRY[MOE_ARCH]
+    n_attn, _ = mixers(cfg)
+    bf16 = torch.bfloat16
+    model = build_model(cfg)
+    gen = torch.Generator(device=dev).manual_seed(23)
+    params = model.init(gen, bf16, dev)
+    x = torch.randn(BATCH, PROMPT, cfg.d_model, generator=gen, device=dev
+                    ).to(bf16)
+    tokens = torch.randint(0, cfg.vocab_size, (BATCH, PROMPT), generator=gen,
+                           device=dev, dtype=torch.int32)
+    mesh = make_debug_mesh((1, 1))
+    rules = dict(DEFAULT_RULES)
+    sharded = []
+    real = moe._moe_ffn_sharded
+
+    def counting(*args, **kwargs):
+        sharded.append(1)
+        return real(*args, **kwargs)
+    try:
+        placed = place(params, param_shardings(params, mesh, rules), mesh)
+        layer = _index(params["segments"][0], 0)["p0"]["ffn"]
+        placed_layer = _index(placed["segments"][0], 0)["p0"]["ffn"]
+        with torch.no_grad():
+            want_out, want_aux = moe.moe_ffn(cfg, layer, x)
+            moe._moe_ffn_sharded = counting
+            with axis_rules(rules, mesh):
+                out, aux = moe.moe_ffn(cfg, placed_layer, x)
+            out, aux = _local(out), _local(aux)
+        log("moe_mesh", check="moe_ffn under the mesh vs local, one layer",
+            tokens=BATCH * PROMPT, experts=cfg.moe.n_experts,
+            top_k=cfg.moe.top_k, sharded_calls=len(sharded),
+            out_equal=bool(torch.equal(out, want_out)),
+            aux_equal=bool(torch.equal(aux, want_aux)),
+            aux=f"{want_aux.item():.6f}")
+        assert len(sharded) == 1
+        assert torch.equal(out, want_out) and torch.equal(aux, want_aux)
+
+        def prefill(weights, under):
+            cache = model.init_cache(BATCH, MAX_SEQ, bf16, dev)
+            if under:
+                cache = place(cache, cache_shardings(cache, mesh, rules),
+                              mesh)
+            ops.reset_launch_counts()
+            with torch.no_grad():
+                if under:
+                    with axis_rules(rules, mesh):
+                        lg = _local(model.prefill(weights, {"tokens": tokens},
+                                                  cache)[0])
+                else:
+                    lg = model.prefill(weights, {"tokens": tokens}, cache)[0]
+            torch.cuda.synchronize()
+            return lg, ops.launch_counts()
+
+        want, plain_counts = prefill(params, False)
+        del sharded[:]
+        got, mesh_counts = prefill(placed, True)
+        for name, n in mesh_counts.items():
+            kernels[name]["launches"] += n
+        log("moe_mesh", check="full-depth prefill under the mesh",
+            layers=cfg.n_layers, sharded_calls=len(sharded),
+            logits_equal=bool(torch.equal(got, want)),
+            tokens_equal=bool(torch.equal(got.argmax(-1), want.argmax(-1))),
+            plain_launches=json.dumps(plain_counts),
+            mesh_launches=json.dumps(mesh_counts))
+        assert len(sharded) == cfg.n_layers
+        assert torch.equal(got, want)
+        assert plain_counts == mesh_counts
+        assert mesh_counts["flash_attention"] == n_attn
+    finally:
+        moe._moe_ffn_sharded = real
+        close_mesh()
+    del model, params
+    torch.cuda.empty_cache()
+
+
+def phase_dryrun(torch) -> None:
+    """``python -m repro_torch.launch.dryrun`` for each of
+    ``DRYRUN_COMBOS``, one subprocess each, all started together (the fake
+    process group must not live in this process; the CPU holds the fake
+    tensors, no card is used). Every combination must print ``OK``; logs
+    its per-device argument GB, the three roofline terms and the trace's
+    seconds."""
+    import os
+    import tempfile
+
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               CUDA_VISIBLE_DEVICES="")
+    with tempfile.TemporaryDirectory() as tmp:
+        procs = []
+        for i, (arch, shape, mp) in enumerate(DRYRUN_COMBOS):
+            out = Path(tmp) / f"{i}.json"
+            argv = [sys.executable, "-m", "repro_torch.launch.dryrun",
+                    "--arch", arch, "--shape", shape, "--out", str(out)]
+            argv += ["--multi-pod"] if mp else []
+            procs.append((arch, shape, mp, out, subprocess.Popen(
+                argv, cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                stderr=subprocess.PIPE, text=True)))
+        failed = []
+        for arch, shape, mp, out, proc in procs:
+            try:
+                stdout, stderr = proc.communicate(timeout=DRYRUN_TIMEOUT)
+            except subprocess.TimeoutExpired:
+                for *_, p in procs:
+                    p.kill()
+                    p.communicate()
+                raise
+            mesh = "2x16x16" if mp else "16x16"
+            ok = proc.returncode == 0 and "OK " in stdout
+            if not ok:
+                failed.append((arch, shape, mesh))
+                print(stdout[-2000:], stderr[-4000:], flush=True)
+                continue
+            rec, = json.loads(out.read_text())
+            r = rec["roofline"]
+            log("dryrun", arch=arch, shape=shape, mesh=mesh,
+                argument_gb_per_device=f"{rec['memory_analysis']['argument_gb']:.4f}",
+                compute_s=f"{r['compute_s']:.6e}",
+                memory_s=f"{r['memory_s']:.6e}",
+                collective_s=f"{r['collective_s']:.6e}",
+                dominant=r["dominant"],
+                useful_flops_ratio=f"{r['useful_flops_ratio']:.4f}",
+                collectives=json.dumps(rec["collectives"]),
+                trace_s=rec["trace_s"], place_s=rec["place_s"])
+    assert not failed, f"dry-run combinations failed: {failed}"
+
 
 if __name__ == "__main__":
     sys.exit(main())

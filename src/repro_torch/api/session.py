@@ -483,6 +483,8 @@ class HyperOffloadSession:
         self._closed = True
         for s in self._schedulers:
             s.close()
+        for e in self._engines:
+            e.close()
         if self.prefix_cache is not None:
             self.prefix_cache.close()
         tp = self.config.telemetry.trace_path

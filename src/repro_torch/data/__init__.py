@@ -1,5 +1,5 @@
 """Synthetic training data (the counterpart of ``repro.data``)."""
 
-from repro_torch.data.pipeline import SyntheticTokens
+from repro_torch.data.pipeline import SyntheticTokens, make_batch_specs
 
-__all__ = ["SyntheticTokens"]
+__all__ = ["SyntheticTokens", "make_batch_specs"]

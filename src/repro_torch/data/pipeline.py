@@ -90,3 +90,24 @@ class SyntheticTokens:
         while True:
             yield self.batch(step)
             step += 1
+
+
+def make_batch_specs(cfg: ModelConfig, seq_len: int, global_batch: int,
+                     dtype: torch.dtype = torch.bfloat16
+                     ) -> Dict[str, torch.Tensor]:
+    """``meta`` tensors matching ``SyntheticTokens.batch`` (the dry-run's
+    inputs): int32 tokens and targets, the frontend stub's inputs in
+    ``dtype``, the vision mask bool and M-RoPE positions int32."""
+    def meta(shape, dt):
+        return torch.empty(shape, dtype=dt, device="meta")
+    out = {"tokens": meta((global_batch, seq_len), torch.int32),
+           "targets": meta((global_batch, seq_len), torch.int32)}
+    if cfg.frontend == "audio":
+        out["enc_embeds"] = meta((global_batch, cfg.encoder.n_frames,
+                                  cfg.d_model), dtype)
+    elif cfg.frontend == "vision":
+        out["vision_embeds"] = meta((global_batch, seq_len, cfg.d_model),
+                                    dtype)
+        out["vision_mask"] = meta((global_batch, seq_len), torch.bool)
+        out["positions"] = meta((3, global_batch, seq_len), torch.int32)
+    return out

@@ -11,7 +11,11 @@
 
 A wrapper runs its plain PyTorch version when the tensors lie on the CPU
 and launches the Hopper kernel when they lie on a CUDA device; there is no
-fallback from the kernel to the plain version. The kernel-launching
+fallback from the kernel to the plain version. Under a device mesh the
+model calls the wrappers on each device's local heads and rows
+(``sharding.ops.local_over``), so a one-device mesh launches the same
+kernel on the same tensors as no mesh; a ``DTensor`` given to a wrapper
+raises. The kernel-launching
 functions count their launches (:func:`launch_counts`), so a run can show
 that its main path went through the kernels. The paged-decode kernel takes
 the paged cache's own layout, and ``PagedKVCache.attend_fused`` calls
@@ -35,6 +39,7 @@ from repro_torch.kernels.ref import (
     ssd_scan_ref,
 )
 from repro_torch.kernels.ssd_scan import ssd_scan_cuda
+from repro_torch.sharding.ops import is_dtensor
 
 __all__ = ["flash_attention", "decode_attention", "ssd_scan",
            "launch_counts", "reset_launch_counts"]
@@ -52,6 +57,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """Model-layout flash attention: q (B,S,Hq,D), k/v (B,T,Hkv,D) →
     (B,S,Hq,D). On CUDA the kernel reads the transposed views in place and
     writes straight into a (B,S,Hq,D) output."""
+    _refuse_dtensor(q, k, v)
     qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
     if q.device.type == "cpu":
         out = flash_attention_ref(qt, kt, vt, scale=scale, causal=causal,
@@ -72,6 +78,7 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     tensor (every row), or a (B,) tensor (each row at its own index). On
     CUDA the kernel reads the cache in place through its strides, and a
     tensor ``pos`` on the card as a device array."""
+    _refuse_dtensor(q, k, v, pos)
     q3 = q[:, 0]
     if q.device.type == "cpu":
         out = decode_attention_ref(q3, k.transpose(1, 2), v.transpose(1, 2),
@@ -88,9 +95,19 @@ def ssd_scan(x: torch.Tensor, a: torch.Tensor, b_mat: torch.Tensor,
     """Mamba2 SSD chunked scan in model layout: x (B,S,H,P), a (B,S,H),
     B/C (B,S,H,N), ``S % chunk == 0`` → (y (B,S,H,P), final state
     (B,H,P,N)), both fp32."""
+    _refuse_dtensor(x, a, b_mat, c_mat)
     if x.device.type == "cpu":
         return ssd_scan_ref(x, a, b_mat, c_mat, chunk)
     return ssd_scan_cuda(x, a, b_mat, c_mat, chunk)
+
+
+def _refuse_dtensor(*ts) -> None:
+    """A wrapper takes each device's local tensors: the model hands it
+    those through ``sharding.ops.local_over``. A ``DTensor`` would reach
+    the launch as a wrapper object, so it is refused here."""
+    if any(is_dtensor(t) for t in ts):
+        raise TypeError("the kernel wrappers take local tensors; run them "
+                        "under sharding.ops.local_over on a mesh")
 
 
 def launch_counts() -> Dict[str, int]:

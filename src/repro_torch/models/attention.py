@@ -21,10 +21,19 @@ KV caches for sliding-window layers are ring buffers of capacity
 ``min(window, max_seq)`` — token ``t`` lives in slot ``t % C``. Where the
 JAX reference returns a new cache (and donates the old buffers), the port
 writes the cache tensors in place.
+
+Under a device mesh (``sharding.rules.axis_rules``) the points where
+``DTensor`` has no strategy of its own go through ``sharding.ops``: the
+projections through ``linear``, the head split through ``split_heads``,
+every attention core (the kernels' calls included) through
+``local_over`` on each device's batch and heads, and the ring writes
+(``index_copy_``, ``roll``, indexed assignment) through ``write_local``
+on each device's shard, a ring split over its slots gathered first.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Dict, Optional, Sequence, Tuple, Union
 
 import torch
@@ -32,8 +41,20 @@ import torch
 from repro_torch.configs.base import LayerSpec, ModelConfig
 from repro_torch.models import runtime
 from repro_torch.models.common import apply_rope, dense_init, rmsnorm, softcap
+from repro_torch.sharding.ops import (
+    linear,
+    local_over,
+    replicated,
+    split_heads,
+    write_local,
+)
+from repro_torch.sharding.rules import constrain
 
 NEG_INF = -2.3819763e38
+
+#: the dims an attention core is independent along: batch and heads of a
+#: (B, S, H, D) tensor (``sharding.ops.local_over``)
+_BH = {"b": 0, "h": 2}
 
 Pos = Union[int, torch.Tensor]
 
@@ -195,13 +216,20 @@ def _plain_causal_attention(q, k, v, scale, window, cap) -> torch.Tensor:
 
 
 def _project_qkv(cfg: ModelConfig, p: Dict, x: torch.Tensor,
-                 positions: torch.Tensor
+                 positions: torch.Tensor, annotate: bool = False
                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """q (B,S,Hq,D), k/v (B,S,Hkv,D), rotated. ``annotate`` (the full
+    forward's) constrains their head sharding, where the reference's
+    ``attention_full`` does."""
     b, s, _ = x.shape
     hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    q = (x @ p["wq"]).reshape(b, s, hq, hd)
-    k = (x @ p["wk"]).reshape(b, s, hkv, hd)
-    v = (x @ p["wv"]).reshape(b, s, hkv, hd)
+    q = split_heads(linear(x, p["wq"]), hq, hd)
+    k = split_heads(linear(x, p["wk"]), hkv, hd)
+    v = split_heads(linear(x, p["wv"]), hkv, hd)
+    if annotate:
+        q = constrain(q, ("batch", "seq", "heads", None))
+        k = constrain(k, ("batch", "seq", "kv_heads", None))
+        v = constrain(v, ("batch", "seq", "kv_heads", None))
     if cfg.rope_mode in ("rope", "mrope"):
         sections = cfg.mrope_sections if cfg.rope_mode == "mrope" else None
         q = apply_rope(q, positions, cfg.rope_theta, sections)
@@ -223,9 +251,19 @@ def _window(spec: LayerSpec, swa_override: Optional[int]) -> Optional[int]:
 def _attend_full(cfg: ModelConfig, window: Optional[int], q: torch.Tensor,
                  k: torch.Tensor, v: torch.Tensor, causal: bool,
                  dtype: torch.dtype) -> torch.Tensor:
-    """Attention of projected q/k/v (B,S,H,D) → (B,S,Hq*D) in ``dtype``.
-    Causal attention on a CUDA tensor goes through the flash kernel."""
+    """Attention of projected q/k/v (B,S,H,D) → (B,S,Hq*D) in ``dtype``,
+    on each device's local batch and heads under a mesh."""
     b, s, hq, hd = q.shape
+    out = local_over(functools.partial(_attend_core, cfg, window, causal),
+                     (q, k, v), (_BH, _BH, _BH), _BH)
+    return out.to(dtype).reshape(b, s, hq * hd)
+
+
+def _attend_core(cfg: ModelConfig, window: Optional[int], causal: bool,
+                 q: torch.Tensor, k: torch.Tensor,
+                 v: torch.Tensor) -> torch.Tensor:
+    """(B,S,Hq,D) attention of local tensors. Causal attention on a CUDA
+    tensor goes through the flash kernel."""
     scale = _scale(cfg)
     if causal and runtime.attention_impl(q.device) == "kernel":
         from repro_torch.kernels import ops as kops
@@ -238,7 +276,7 @@ def _attend_full(cfg: ModelConfig, window: Optional[int], q: torch.Tensor,
     else:
         scores = softcap(_gqa_scores(q, k) * scale, cfg.attn_logit_softcap)
         out = _gqa_out(_masked_softmax(scores, None), v)
-    return out.to(dtype).reshape(b, s, hq * hd)
+    return out
 
 
 def attention_full(cfg: ModelConfig, spec: LayerSpec, p: Dict,
@@ -248,10 +286,10 @@ def attention_full(cfg: ModelConfig, spec: LayerSpec, p: Dict,
     """Self-attention over a full sequence. Returns (B,S,D)."""
     if spec.mixer == "mla":
         return _mla_full(cfg, p, x, positions)
-    q, k, v = _project_qkv(cfg, p, x, positions)
+    q, k, v = _project_qkv(cfg, p, x, positions, annotate=True)
     out = _attend_full(cfg, _window(spec, swa_override), q, k, v, causal,
                        x.dtype)
-    return out @ p["wo"]
+    return linear(out, p["wo"])
 
 
 def cross_attention_kv(cfg: ModelConfig, p: Dict, enc_out: torch.Tensor
@@ -259,8 +297,8 @@ def cross_attention_kv(cfg: ModelConfig, p: Dict, enc_out: torch.Tensor
     """The encoder output's (B,T,D) keys and values, (B,T,Hkv,D) each."""
     b, t, _ = enc_out.shape
     hkv, hd = cfg.n_kv_heads, cfg.head_dim
-    return ((enc_out @ p["xwk"]).reshape(b, t, hkv, hd),
-            (enc_out @ p["xwv"]).reshape(b, t, hkv, hd))
+    return (split_heads(linear(enc_out, p["xwk"]), hkv, hd),
+            split_heads(linear(enc_out, p["xwv"]), hkv, hd))
 
 
 def _cross_attend(cfg: ModelConfig, p: Dict, x: torch.Tensor,
@@ -269,9 +307,16 @@ def _cross_attend(cfg: ModelConfig, p: Dict, x: torch.Tensor,
     scale hd^-1/2 → (B,S,D)."""
     b, s, _ = x.shape
     hq, hd = cfg.n_heads, cfg.head_dim
-    q = (x @ p["xwq"]).reshape(b, s, hq, hd)
+    q = split_heads(linear(x, p["xwq"]), hq, hd)
+    out = local_over(functools.partial(_cross_core, hd), (q, k, v),
+                     (_BH, _BH, _BH), _BH)
+    return linear(out.to(x.dtype).reshape(b, s, hq * hd), p["xwo"])
+
+
+def _cross_core(hd: int, q: torch.Tensor, k: torch.Tensor,
+                v: torch.Tensor) -> torch.Tensor:
     probs = _masked_softmax(_gqa_scores(q, k) * hd ** -0.5, None)
-    return _gqa_out(probs, v).to(x.dtype).reshape(b, s, hq * hd) @ p["xwo"]
+    return _gqa_out(probs, v)
 
 
 def cross_attention_full(cfg: ModelConfig, p: Dict, x: torch.Tensor,
@@ -309,8 +354,8 @@ def attention_prefill(cfg: ModelConfig, spec: LayerSpec, p: Dict,
         _ring_write_seq(cache["krope"], kr.to(cache["krope"].dtype))
         return out, cache
     q, k, v = _project_qkv(cfg, p, x, positions)
-    out = _attend_full(cfg, _window(spec, swa_override), q, k, v, True,
-                       x.dtype) @ p["wo"]
+    out = linear(_attend_full(cfg, _window(spec, swa_override), q, k, v,
+                              True, x.dtype), p["wo"])
     _ring_write_seq(cache["k"], k)
     _ring_write_seq(cache["v"], v)
     if spec.cross_attn and enc_out is not None:
@@ -392,22 +437,26 @@ def attention_prefill_chunk(cfg: ModelConfig, spec: LayerSpec, p: Dict,
     out = _gqa_out(probs, v_all).to(x.dtype).reshape(b, s, hq * hd)
     _ring_write_at(cache["k"], k, offset, valid_len)
     _ring_write_at(cache["v"], v, offset, valid_len)
-    return out @ p["wo"], cache
+    return linear(out, p["wo"]), cache
 
 
 def _ring_write_seq(buf: torch.Tensor, vals: torch.Tensor) -> torch.Tensor:
     """Write a full sequence (B,S,...) into a ring buffer (B,C,...) in
     place: token t -> slot t % C. When S <= C this is a plain prefix
-    write."""
+    write. Under a mesh each device writes its shard."""
+    write_local(_write_seq, buf, vals)
+    return buf
+
+
+def _write_seq(buf: torch.Tensor, vals: torch.Tensor) -> None:
     c = buf.shape[1]
     s = vals.shape[1]
     if s <= c:
         buf[:, :s] = vals
-        return buf
+        return
     # keep the last C tokens, rotated so that token t sits at slot t % C
     start = (s - c) % c
     buf.copy_(torch.roll(vals[:, s - c:], shifts=start, dims=1))
-    return buf
 
 
 # ---------------------------------------------------------------------------
@@ -440,25 +489,33 @@ def attention_decode(cfg: ModelConfig, spec: LayerSpec, p: Dict,
         return _mla_decode(cfg, p, x, pos, positions, cache)
     b, _, _ = x.shape
     hq, hd = cfg.n_heads, cfg.head_dim
-    c = cache["k"].shape[1]
     q, k, v = _project_qkv(cfg, p, x, positions)
     new_k = _ring_write_token(cache["k"], k, pos)
     new_v = _ring_write_token(cache["v"], v, pos)
-    if runtime.attention_impl(x.device) == "kernel":
+    per_row = isinstance(pos, torch.Tensor) and pos.dim() == 1
+    out = local_over(functools.partial(_decode_core, cfg),
+                     (q, new_k, new_v, pos),
+                     (_BH, _BH, _BH, {"b": 0} if per_row else None), _BH)
+    return linear(out.to(x.dtype).reshape(b, 1, hq * hd), p["wo"]), cache
+
+
+def _decode_core(cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor,
+                 v: torch.Tensor, pos: Pos) -> torch.Tensor:
+    """(B,1,Hq,D) attention of one query per row over the written ring
+    (local tensors)."""
+    if runtime.attention_impl(q.device) == "kernel":
         from repro_torch.kernels import ops as kops
         # the kernel takes one dtype: q in the cache's (the same on the
         # serving path)
-        out = kops.decode_attention(q.to(new_k.dtype), new_k, new_v, pos,
-                                    scale=_scale(cfg),
-                                    logit_cap=cfg.attn_logit_softcap)
-        return out.to(x.dtype).reshape(b, 1, hq * hd) @ p["wo"], cache
-    scores = _gqa_scores(q, new_k) * _scale(cfg)        # (B,1,Hq,C)
+        return kops.decode_attention(q.to(k.dtype), k, v, pos,
+                                     scale=_scale(cfg),
+                                     logit_cap=cfg.attn_logit_softcap)
+    scores = _gqa_scores(q, k) * _scale(cfg)            # (B,1,Hq,C)
     scores = softcap(scores, cfg.attn_logit_softcap)
-    valid = _ring_valid_mask(pos, c, x.device)          # (C,) or (B,C)
+    valid = _ring_valid_mask(pos, k.shape[1], q.device)  # (C,) or (B,C)
     scores = _apply_valid_mask(scores, valid)
     probs = torch.softmax(scores, dim=-1)
-    out = _gqa_out(probs, new_v).to(x.dtype).reshape(b, 1, hq * hd)
-    return out @ p["wo"], cache
+    return _gqa_out(probs, v)
 
 
 def _ring_valid_mask(pos: Pos, c: int, device: torch.device) -> torch.Tensor:
@@ -489,7 +546,18 @@ def _ring_write_token(buf: torch.Tensor, vals: torch.Tensor,
     """Write one token's entries (B,1,...) into the ring buffer (B,C,...)
     in place. A scalar ``pos`` writes every row at slot ``pos % C``; a (B,)
     ``pos`` writes row i at its own slot ``pos[i] % C`` — the
-    continuous-batching case where requests sit at different positions."""
+    continuous-batching case where requests sit at different positions.
+    Returns the written ring: ``buf`` itself, or under a mesh that splits
+    the ring's slots, the gathered ring, written, whose shards are then
+    copied back into ``buf``."""
+    full, gathered = replicated(buf, 1)
+    write_local(_write_token, full, vals, pos)
+    if gathered:
+        buf.copy_(full)
+    return full
+
+
+def _write_token(buf: torch.Tensor, vals: torch.Tensor, pos: Pos) -> None:
     c = buf.shape[1]
     vals = vals.to(buf.dtype)
     if isinstance(pos, int):
@@ -499,7 +567,6 @@ def _ring_write_token(buf: torch.Tensor, vals: torch.Tensor,
     else:
         rows = torch.arange(buf.shape[0], device=buf.device)
         buf[rows, torch.remainder(pos, c).long()] = vals[:, 0]
-    return buf
 
 
 # ---------------------------------------------------------------------------
@@ -514,8 +581,8 @@ def _mla_query(cfg: ModelConfig, p: Dict, x: torch.Tensor,
     m = cfg.mla
     b, s, _ = x.shape
     dn, dr = m.qk_nope_head_dim, m.qk_rope_head_dim
-    qlat = rmsnorm(x @ p["wdq"], p["q_norm"], cfg.norm_eps)
-    q = (qlat @ p["wuq"]).reshape(b, s, cfg.n_heads, dn + dr)
+    qlat = rmsnorm(linear(x, p["wdq"]), p["q_norm"], cfg.norm_eps)
+    q = split_heads(linear(qlat, p["wuq"]), cfg.n_heads, dn + dr)
     return q[..., :dn], apply_rope(q[..., dn:], positions, cfg.rope_theta)
 
 
@@ -524,8 +591,8 @@ def _mla_latent(cfg: ModelConfig, p: Dict, x: torch.Tensor,
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The tokens' latent (B,S,r) and rotated key part (B,S,dr): what the
     cache holds."""
-    ckv = rmsnorm(x @ p["wdkv"], p["kv_norm"], cfg.norm_eps)
-    kr = apply_rope((x @ p["wkr"])[:, :, None, :], positions,
+    ckv = rmsnorm(linear(x, p["wdkv"]), p["kv_norm"], cfg.norm_eps)
+    kr = apply_rope(linear(x, p["wkr"])[:, :, None, :], positions,
                     cfg.rope_theta)[:, :, 0]
     return ckv, kr
 
@@ -558,7 +625,8 @@ def _mla_out(cfg: ModelConfig, p: Dict, probs: torch.Tensor,
              v: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     b, s, h, _ = probs.shape
     out = torch.einsum("bsht,bthd->bshd", probs, v.float())
-    return out.to(dtype).reshape(b, s, h * cfg.mla.v_head_dim) @ p["wo"]
+    out = out.to(dtype).reshape(b, s, h * cfg.mla.v_head_dim)
+    return linear(out, p["wo"])
 
 
 def _mla_full(cfg: ModelConfig, p: Dict, x: torch.Tensor,

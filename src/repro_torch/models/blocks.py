@@ -18,6 +18,7 @@ from repro_torch.models import moe as moe_mod
 from repro_torch.models import remat
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.common import apply_norm, norm_params
+from repro_torch.sharding.rules import constrain
 
 
 def check_supported(cfg: ModelConfig) -> None:
@@ -96,6 +97,12 @@ def init_layer_cache(cfg: ModelConfig, spec: LayerSpec, batch: int,
 # ---------------------------------------------------------------------------
 
 
+def _constrain_resid(x: torch.Tensor) -> torch.Tensor:
+    """The sharding of the residual stream and of the sublayer outputs
+    added to it (sequence-split under the launcher's ``seq_act`` rule)."""
+    return constrain(x, ("batch", "seq_act", "embed_act"))
+
+
 def _zero_aux(x: torch.Tensor) -> torch.Tensor:
     return torch.zeros((), dtype=torch.float32, device=x.device)
 
@@ -167,7 +174,7 @@ def apply_layer(cfg: ModelConfig, spec: LayerSpec, p: Dict, x: torch.Tensor,
                                     causal=causal, swa_override=swa_override)
         if spec.post_norms:
             h = apply_norm(cfg, p["post_norm"], h)
-        return h
+        return _constrain_resid(h)
 
     def ffn(p: Dict, x: torch.Tensor, h: torch.Tensor, *enc: torch.Tensor
             ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -175,17 +182,17 @@ def apply_layer(cfg: ModelConfig, spec: LayerSpec, p: Dict, x: torch.Tensor,
         if enc:
             x = _cross(cfg, p, x, enc[0])
         h, aux = _ffn_out(cfg, spec, p, x)
-        return h, x, aux
+        return _constrain_resid(h), x, aux
 
     cross = (enc_out,) if spec.cross_attn and enc_out is not None else ()
     h = remat.sublayer("attn_out", mixer, p, x)
     if spec.ffn != "none":
         h, x, aux = remat.sublayer("mlp_out", ffn, p, x, h, *cross)
-        return remat.tag(x + h, "resid"), aux
+        return remat.tag(_constrain_resid(x + h), "resid"), aux
     x = x + h
     if cross:
         x = _cross(cfg, p, x, enc_out)
-    return remat.tag(x, "resid"), _zero_aux(x)
+    return remat.tag(_constrain_resid(x), "resid"), _zero_aux(x)
 
 
 def apply_layer_prefill(cfg: ModelConfig, spec: LayerSpec, p: Dict,
@@ -205,7 +212,7 @@ def apply_layer_prefill(cfg: ModelConfig, spec: LayerSpec, p: Dict,
                                           cache, swa_override=swa_override,
                                           enc_out=enc_out)
     x, aux = _post_mixer(cfg, spec, p, x, h, enc_out)
-    return x, aux, cache
+    return _constrain_resid(x), aux, cache
 
 
 def apply_layer_prefill_chunk(cfg: ModelConfig, spec: LayerSpec, p: Dict,
@@ -228,7 +235,7 @@ def apply_layer_prefill_chunk(cfg: ModelConfig, spec: LayerSpec, p: Dict,
         cfg, spec, p["mixer"], h, offset, positions, valid_len, cache,
         swa_override=swa_override)
     x, aux = _post_mixer(cfg, spec, p, x, h)
-    return x, aux, cache
+    return _constrain_resid(x), aux, cache
 
 
 def apply_layer_decode(cfg: ModelConfig, spec: LayerSpec, p: Dict,

@@ -9,6 +9,8 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.common import dense_init
+from repro_torch.sharding.ops import linear
+from repro_torch.sharding.rules import constrain
 
 
 def init_swiglu_params(cfg: ModelConfig, dtype: torch.dtype,
@@ -35,8 +37,12 @@ def init_gelu_params(cfg: ModelConfig, dtype: torch.dtype,
 
 
 def swiglu(p: Dict, x: torch.Tensor) -> torch.Tensor:
-    return (F.silu(x @ p["w_gate"]) * (x @ p["w_up"])) @ p["w_down"]
+    h = F.silu(linear(x, p["w_gate"])) * linear(x, p["w_up"])
+    h = constrain(h, ("batch", "seq", "mlp"))
+    return linear(h, p["w_down"])
 
 
 def gelu_mlp(p: Dict, x: torch.Tensor) -> torch.Tensor:
-    return F.gelu(x @ p["w_in"], approximate="tanh") @ p["w_out"]
+    h = F.gelu(linear(x, p["w_in"]), approximate="tanh")
+    h = constrain(h, ("batch", "seq", "mlp"))
+    return linear(h, p["w_out"])

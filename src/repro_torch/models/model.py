@@ -1,6 +1,8 @@
 """Public model facade: build once from a ``ModelConfig``, then call
 ``init`` / ``loss`` / ``forward`` / ``prefill`` / ``prefill_chunk`` /
-``decode_step``, or ask ``cache_specs`` for a cache's shapes and types.
+``decode_step``, or ask ``param_specs`` / ``cache_specs`` / ``input_specs``
+for the shapes and types of parameters, a cache or a workload's batch
+(``meta`` tensors: the dry-run's stand-ins, which allocate nothing).
 
 Modality frontends are stubs, as in the reference: an audio model's batch
 carries ``enc_embeds`` (precomputed conv/mel frames, (B, n_frames, D)); a
@@ -96,6 +98,13 @@ class Model:
             spec.mixer in ("attn", "mla") and not spec.cross_attn
             for seg in self.cfg.segments for spec in seg.pattern)
 
+    # -- dry-run specs --------------------------------------------------------
+    def param_specs(self, dtype: torch.dtype = torch.bfloat16) -> Dict:
+        """The parameters ``init`` would build, as tensors on the ``meta``
+        device: shapes and types, no memory (mixtral-8x22b's 282 GB
+        included)."""
+        return tfm.init_params(self.cfg, None, dtype, torch.device("meta"))
+
     def cache_specs(self, batch: int, max_seq: int,
                     dtype: torch.dtype = torch.bfloat16) -> Dict:
         """The cache ``init_cache`` would build, as tensors on the ``meta``
@@ -104,10 +113,46 @@ class Model:
                               torch.device("meta"),
                               swa_override=self.swa_override)
 
+    def input_specs(self, shape: InputShape,
+                    dtype: torch.dtype = torch.bfloat16) -> Dict:
+        """``meta`` stand-ins for a workload's batch: train, tokens and
+        targets (B,S) with the frontend stub's inputs; prefill, tokens with
+        them; decode, one token (B,1) and a 0-dim ``pos``. Integers are
+        int32, as in the reference."""
+        b, s = shape.global_batch, shape.seq_len
+        if shape.kind == "train":
+            batch = {"tokens": _meta((b, s), torch.int32),
+                     "targets": _meta((b, s), torch.int32)}
+            self._add_frontend_specs(batch, b, s, dtype)
+            return batch
+        if shape.kind == "prefill":
+            batch = {"tokens": _meta((b, s), torch.int32)}
+            self._add_frontend_specs(batch, b, s, dtype)
+            return batch
+        if shape.kind == "decode":
+            return {"token": _meta((b, 1), torch.int32),
+                    "pos": _meta((), torch.int32)}
+        raise ValueError(shape.kind)
+
+    def _add_frontend_specs(self, batch: Dict, b: int, s: int,
+                            dtype: torch.dtype) -> None:
+        cfg = self.cfg
+        if cfg.frontend == "audio":
+            batch["enc_embeds"] = _meta((b, cfg.encoder.n_frames,
+                                         cfg.d_model), dtype)
+        elif cfg.frontend == "vision":
+            batch["vision_embeds"] = _meta((b, s, cfg.d_model), dtype)
+            batch["vision_mask"] = _meta((b, s), torch.bool)
+            batch["positions"] = _meta((3, b, s), torch.int32)
+
     def decode_step(self, params: Dict, cache: Dict, token: torch.Tensor,
                     pos) -> Tuple[torch.Tensor, Dict]:
         return tfm.decode_step(self.cfg, params, cache, token, pos,
                                swa_override=self.swa_override)
+
+
+def _meta(shape, dtype: torch.dtype) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, device="meta")
 
 
 def build_model(cfg: ModelConfig, shape: Optional[InputShape] = None) -> Model:
@@ -118,3 +163,8 @@ def build_model(cfg: ModelConfig, shape: Optional[InputShape] = None) -> Model:
             and cfg.long_context == "swa-variant":
         swa = cfg.swa_variant_window
     return Model(cfg=cfg, swa_override=swa)
+
+
+# re-exported as in the reference
+init_params = tfm.init_params
+init_cache = tfm.init_cache

@@ -20,9 +20,15 @@ Both data movements are gathers, so they are deterministic on the card:
   the order of increasing expert id, in the activations' type from zero:
   the order in which the reference's scatter-add meets them.
 
-The reference's ``_moe_ffn_sharded`` (the dispatch inside ``shard_map``
-over a device mesh, with tensor-parallel experts) waits for the port's
-sharding tooling; ``moe_ffn`` here is the reference's ``_moe_ffn_local``.
+Under an active mesh and rule-set (``sharding.rules.axis_rules``)
+``moe_ffn`` runs :func:`_moe_ffn_sharded`, the reference's ``shard_map``
+as a ``local_map``: each data shard routes and dispatches its own rows
+(a global ``argsort`` has no ``DTensor`` strategy, and would replicate the
+token buffer), the experts' products run on their tensor-parallel
+columns, and the partial outputs are summed over those ranks. The sort,
+the index scatters of the dispatch and the gathers of the combine all run
+on local tensors there; nothing in this module hands one of them a
+``DTensor``. Otherwise it runs :func:`_moe_ffn_local`.
 
 Load-balancing auxiliary loss: ``E * sum_e(fraction_e * router_prob_e)``
 times ``router_aux_weight``.
@@ -38,6 +44,12 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.common import dense_init
+from repro_torch.sharding.rules import (
+    constrain,
+    current_mesh,
+    current_rules,
+    mesh_axis_sizes,
+)
 
 
 def init_moe_params(cfg: ModelConfig, dtype: torch.dtype,
@@ -165,16 +177,114 @@ class _Dispatch(torch.autograd.Function):
 
 def moe_ffn(cfg: ModelConfig, p: Dict,
             x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x: (B, S, D) -> (out, aux_loss): :func:`_moe_ffn_sharded` under an
+    active mesh and rule-set, :func:`_moe_ffn_local` otherwise."""
+    mesh, rules = current_mesh(), current_rules()
+    if mesh is not None and rules is not None:
+        return _moe_ffn_sharded(cfg, p, x, mesh, rules)
+    return _moe_ffn_local(cfg, p, x)
+
+
+def _mesh_axes(rules, name: str, sizes: Dict[str, int],
+               dim: int) -> Tuple[str, ...]:
+    """The mesh axes a rule maps ``name`` to, kept where the axis has more
+    than one device and divides ``dim``."""
+    axes = rules.get(name) or ()
+    axes = (axes,) if isinstance(axes, str) else tuple(axes)
+    return tuple(a for a in axes if sizes.get(a, 1) > 1 and dim % sizes[a] == 0)
+
+
+def _moe_ffn_sharded(cfg: ModelConfig, p: Dict, x: torch.Tensor, mesh,
+                     rules) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The dispatch per data shard (the reference's ``shard_map``).
+
+    ``dp``: the mesh axes of ``rules["batch"]``, ``tp``: those of
+    ``rules["expert_mlp"]``, each kept where its size is above 1 and
+    divides the batch / ``d_ff_expert``. Each data shard runs
+    :func:`_moe_ffn_local` on its rows, with capacity from its **local**
+    token count; the expert products run on ``d_ff_expert / |tp|``
+    columns, ``out`` is all-reduced (sum) over ``tp`` and ``aux``
+    averaged over ``dp``. No ``constrain`` runs inside (the reference's
+    ``manual=True``). On a one-device mesh this is :func:`_moe_ffn_local`
+    on the whole tensors, bit for bit."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    sizes = mesh_axis_sizes(mesh)
+    names = list(mesh.mesh_dim_names)
+    dp = _mesh_axes(rules, "batch", sizes, x.shape[0])
+    tp = _mesh_axes(rules, "expert_mlp", sizes, cfg.moe.d_ff_expert)
+    dp_dims = [names.index(a) for a in dp]
+    tp_dims = [names.index(a) for a in tp]
+
+    def placed(dims, shard):
+        return tuple(shard if i in dims else Replicate()
+                     for i in range(len(names)))
+
+    rep = placed((), None)
+    x_pl = placed(dp_dims, Shard(0))
+    n_dp = 1
+    for a in dp:
+        n_dp *= sizes[a]
+
+    def local(xb, router, wg, wu, wd):
+        pl = {"router": router, "w_gate": wg, "w_up": wu, "w_down": wd}
+        out, aux = _moe_ffn_local(cfg, pl, xb, manual=True)
+        for i in tp_dims:
+            out = _AllReduceSum.apply(out, (mesh, i))
+        if dp_dims:
+            for i in dp_dims:
+                aux = _AllReduceSum.apply(aux, (mesh, i))
+            aux = aux / n_dp
+        return out, aux
+
+    if not isinstance(x, DTensor):
+        x = DTensor.from_local(x, mesh, rep, run_check=False)
+    # x's gradient from each tensor-parallel rank is that rank's partial
+    x_grad = tuple(Partial() if i in tp_dims else x_pl[i]
+                   for i in range(len(names)))
+    w_pl = placed(tp_dims, Shard(2))
+    wd_pl = placed(tp_dims, Shard(1))
+    return local_map(
+        local, out_placements=(x_pl, rep),
+        in_placements=(x_pl, rep, w_pl, w_pl, wd_pl),
+        in_grad_placements=(x_grad, rep, w_pl, w_pl, wd_pl),
+        device_mesh=mesh, redistribute_inputs=True,
+    )(x, p["router"], p["w_gate"], p["w_up"], p["w_down"])
+
+
+class _AllReduceSum(torch.autograd.Function):
+    """A sum over one mesh dim of partial results whose cotangent is
+    replicated over it: the backward hands each rank the cotangent as it
+    is (Megatron's "g")."""
+
+    @staticmethod
+    def forward(ctx, t: torch.Tensor, group) -> torch.Tensor:
+        from torch.distributed import _functional_collectives as funcol
+        return funcol.wait_tensor(funcol.all_reduce(t, "sum", group))
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor):
+        return grad, None
+
+
+def _moe_ffn_local(cfg: ModelConfig, p: Dict, x: torch.Tensor,
+                   manual: bool = False
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: (B, S, D) -> (out, aux_loss). Capacity comes from ``n = B·S`` of
     ``x`` as given (padded buckets, empty slots and chunks included), as in
-    the reference."""
+    the reference. ``manual`` (inside :func:`_moe_ffn_sharded`) skips the
+    sharding constraints."""
     b, s, d = x.shape
     e = cfg.moe.n_experts
     xf = x.reshape(b * s, d)
     r = route(cfg, p["router"], xf)
     ein = _Dispatch.apply(xf, r.row_token, r.token_dest)
     ein = ein.reshape(e, r.capacity, d)
+    if not manual:
+        ein = constrain(ein, (None, None, "embed_act"))
     h = F.silu(torch.bmm(ein, p["w_gate"])) * torch.bmm(ein, p["w_up"])
+    if not manual:
+        h = constrain(h, ("experts", None, "expert_mlp"))
     eout = torch.bmm(h, p["w_down"])                              # (E, C, D)
     eflat = torch.cat([eout.reshape(e * r.capacity, d),
                        eout.new_zeros((1, d))])

@@ -5,9 +5,10 @@ Tensors on the CPU always take the plain PyTorch path. Tensors on a CUDA
 device take the hand-written kernels (``"kernel"``, the default);
 ``use_attention_impl("plain")`` switches a CUDA run to the plain path, which
 exists so a check can compare the two on the card, and which training takes
-(the kernels are forward-only). The choice is a context variable: code that
-runs later on another thread (a recompute in the backward, on autograd's
-device thread) re-enters the choice it captured (``offload.policies``).
+(the kernels are forward-only). The choice is a context variable, as are
+the sharding rules and mesh (``sharding.rules.axis_rules``): code that runs
+later on another thread (a recompute in the backward, on autograd's device
+thread) re-enters what it captured (:func:`under_forward_context`).
 """
 
 from __future__ import annotations
@@ -16,6 +17,8 @@ import contextlib
 import contextvars
 
 import torch
+
+from repro_torch.sharding.rules import axis_rules, current_mesh, current_rules
 
 IMPLS = ("plain", "kernel")
 _attn_impl = contextvars.ContextVar("repro_torch_attn_impl", default="kernel")
@@ -42,3 +45,19 @@ def use_attention_impl(name: str):
         yield
     finally:
         _attn_impl.reset(tok)
+
+
+def under_forward_context(fn):
+    """``fn`` run under the attention path, and the sharding rules and
+    mesh, in force where it is wrapped: a recompute in the backward runs on
+    autograd's device thread, where the context variables that selected
+    them in the forward are unset."""
+    impl, rules, mesh = _attn_impl.get(), current_rules(), current_mesh()
+
+    def run(*args):
+        with use_attention_impl(impl):
+            if rules is None:
+                return fn(*args)
+            with axis_rules(rules, mesh):
+                return fn(*args)
+    return run

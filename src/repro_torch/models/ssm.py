@@ -8,7 +8,11 @@ CUDA tensor (the Hopper kernel, which also returns the final state) and
 through :func:`ssd_chunked` on the CPU or under
 ``use_attention_impl("plain")``. Prefill and decode write the layer's
 ``conv`` and ``ssm`` cache slices in place, where the reference returns a
-new cache.
+new cache. Under a device mesh the projections go through
+``sharding.ops.linear`` and the decode's state update through
+``local_over`` on each device's batch and heads (its einsums merge two
+split dims, which ``DTensor`` cannot shard); the SSD kernel takes only
+local tensors.
 """
 
 from __future__ import annotations
@@ -22,6 +26,8 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import runtime
 from repro_torch.models.common import dense_init, rmsnorm
+from repro_torch.sharding.ops import linear, local_over
+from repro_torch.sharding.rules import constrain
 
 NEG_INF = -1e30
 
@@ -170,7 +176,7 @@ def causal_conv(x: torch.Tensor, w: torch.Tensor,
 
 def _project(cfg: ModelConfig, p: Dict, x: torch.Tensor):
     s, di, nh, conv_dim = _dims(cfg)
-    zxbcdt = x @ p["in_proj"]
+    zxbcdt = linear(x, p["in_proj"])
     z = zxbcdt[..., :di]
     xbc = zxbcdt[..., di:di + conv_dim]
     dt_raw = zxbcdt[..., di + conv_dim:]
@@ -204,9 +210,12 @@ def _ssd_scan(x_dt, a_dt, b_mat, c_mat, chunk):
     return ssd_chunked(x_dt, a_dt, b_mat, c_mat, chunk)
 
 
-def _mixer(cfg: ModelConfig, p: Dict, x: torch.Tensor):
+def _mixer(cfg: ModelConfig, p: Dict, x: torch.Tensor,
+           annotate: bool = False):
     """The full-sequence block shared by forward and prefill. Returns
-    (out (B,S,D), the conv's pre-activation input xbc, final SSM state)."""
+    (out (B,S,D), the conv's pre-activation input xbc, final SSM state).
+    ``annotate`` (the forward's) constrains the gated output's sharding
+    before the out projection, where the reference's forward does."""
     s_cfg, di, nh, conv_dim = _dims(cfg)
     bsz, slen, _ = x.shape
     z, xbc, dt_raw = _project(cfg, p, x)
@@ -232,12 +241,14 @@ def _mixer(cfg: ModelConfig, p: Dict, x: torch.Tensor):
     y = y.reshape(bsz, slen, di)
     y = y * F.silu(z.float())
     y = rmsnorm(y.to(x.dtype), p["gate_norm"], cfg.norm_eps)
-    return y @ p["out_proj"], xbc, final_state
+    if annotate:
+        y = constrain(y, ("batch", "seq", "ssm_inner"))
+    return linear(y, p["out_proj"]), xbc, final_state
 
 
 def mamba_forward(cfg: ModelConfig, p: Dict, x: torch.Tensor) -> torch.Tensor:
     """Full-sequence Mamba2 block. x: (B, S, D) -> (B, S, D)."""
-    return _mixer(cfg, p, x)[0]
+    return _mixer(cfg, p, x, annotate=True)[0]
 
 
 def mamba_prefill(cfg: ModelConfig, p: Dict, x: torch.Tensor,
@@ -250,6 +261,18 @@ def mamba_prefill(cfg: ModelConfig, p: Dict, x: torch.Tensor,
     cache["conv"].copy_(tail.transpose(1, 2))
     cache["ssm"].copy_(final_state)
     return out, cache
+
+
+def _state_step(state: torch.Tensor, da: torch.Tensor, dt: torch.Tensor,
+                b_mat: torch.Tensor, c_mat: torch.Tensor, xs: torch.Tensor
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One recurrent step of the SSM state (B,H,P,N) and its read-out y
+    (B,H,P), independent along batch and heads."""
+    state = state * da[..., None, None]
+    state = state + torch.einsum("bh,bhn,bhp->bhpn", dt, b_mat.float(),
+                                 xs.float())
+    y = torch.einsum("bhn,bhpn->bhp", c_mat.float(), state)
+    return y, state
 
 
 def mamba_decode(cfg: ModelConfig, p: Dict, x: torch.Tensor,
@@ -271,15 +294,14 @@ def mamba_decode(cfg: ModelConfig, p: Dict, x: torch.Tensor,
     dt = F.softplus(dt_raw.float() + p["dt_bias"])  # (B,H)
     a = -torch.exp(p["A_log"])
     da = torch.exp(dt * a[None, :])                 # (B,H)
-    state = cache["ssm"] * da[..., None, None]
-    state = state + torch.einsum("bh,bhn,bhp->bhpn", dt, b_mat.float(),
-                                 xs.float())
-    y = torch.einsum("bhn,bhpn->bhp", c_mat.float(), state)
+    bh = {"b": 0, "h": 1}
+    y, state = local_over(_state_step, (cache["ssm"], da, dt, b_mat, c_mat,
+                                        xs), (bh,) * 6, (bh, bh))
     y = y + p["D"][None, :, None] * xs.float()
     y = y.reshape(bsz, di)
     y = y * F.silu(z.float())
     y = rmsnorm(y.to(x.dtype), p["gate_norm"], cfg.norm_eps)
-    out = (y @ p["out_proj"])[:, None, :]
+    out = linear(y, p["out_proj"])[:, None, :]
     cache["conv"].copy_(window[..., 1:])
     cache["ssm"].copy_(state)
     return out, cache

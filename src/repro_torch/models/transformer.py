@@ -18,8 +18,10 @@ import torch
 
 from repro_torch.configs.base import LayerSpec, ModelConfig
 from repro_torch.models import attention as attn
-from repro_torch.models import blocks, remat
+from repro_torch.models import blocks, remat, runtime
 from repro_torch.models.common import apply_norm, embed_init, norm_params, softcap
+from repro_torch.sharding.ops import embed_lookup, linear
+from repro_torch.sharding.rules import constrain
 
 
 def _index(tree: Dict, r: int) -> Dict:
@@ -104,7 +106,7 @@ def embed_tokens(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
     place. Under ``rope_mode == "learned"`` the sinusoid of ``positions``
     (plane 0 of 3-plane positions) is added, as the reference does in
     place of whisper's learned table."""
-    x = params["embed"][tokens.long()]
+    x = embed_lookup(params["embed"], tokens.long())
     if cfg.scale_embeddings:
         # the constant is rounded to x's type first, as the reference does
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype, device=x.device)
@@ -113,21 +115,21 @@ def embed_tokens(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
     if cfg.rope_mode == "learned":
         pos2d = positions if positions.dim() == 2 else positions[0]
         x = x + _sinusoid(pos2d, cfg.d_model).to(x.dtype)
-    return x
+    return constrain(x, ("batch", "seq_act", "embed_act"))
 
 
 def final_logits(cfg: ModelConfig, params: Dict, x: torch.Tensor) -> torch.Tensor:
     x = apply_norm(cfg, params["final_norm"], x)
     if cfg.tie_embeddings:
-        logits = x @ params["embed"].T
+        logits = linear(x, params["embed"].T)
     else:
-        logits = x @ params["lm_head"]
+        logits = linear(x, params["lm_head"])
     logits = softcap(logits.float(), cfg.final_logit_softcap)
     if cfg.padded_vocab != cfg.vocab_size:
         # padded vocab: pad columns never win softmax/argmax
         pad = torch.arange(cfg.padded_vocab, device=x.device) < cfg.vocab_size
         logits = torch.where(pad, logits, -1e30)
-    return logits
+    return constrain(logits, ("batch", "seq", "vocab"))
 
 
 def _default_positions(cfg: ModelConfig, tokens: torch.Tensor,
@@ -158,25 +160,26 @@ ENCODER_LAYER = LayerSpec(mixer="attn", ffn="gelu")
 def encode(cfg: ModelConfig, params: Dict,
            enc_embeds: torch.Tensor) -> torch.Tensor:
     """enc_embeds (B, frames, D), the frontend stub's precomputed
-    embeddings → the encoder output (B, frames, D). The embeddings are
-    taken in the weights' type; the reference promotes instead (fp32
-    embeddings run its encoder in fp32 over bf16 weights), so the two
-    agree when embeddings and weights share a type. Each layer
+    embeddings → the encoder output (B, frames, D), in the embeddings'
+    type promoted with the weights', as in the reference: fp32 embeddings
+    run the encoder in fp32 over bf16 weights (``sharding.ops.linear``
+    promotes at each product, as ``jnp``'s ``@`` does), and so the cross
+    keys and values made from its output. Each layer
     attends without a causal mask, and is always rematerialised in the
     backward (the reference's ``jax.checkpoint`` around its scan body):
     otherwise every layer's (frames × frames) scores would be kept."""
     from torch.utils.checkpoint import checkpoint
     enc = params["encoder"]
-    x = enc_embeds.to(params["embed"].dtype)
-    b, t, _ = x.shape
-    pos = torch.arange(t, device=x.device)[None, :].expand(b, t)
-    x = x + _sinusoid(pos, cfg.d_model).to(x.dtype)
+    b, t, _ = enc_embeds.shape
+    pos = torch.arange(t, device=enc_embeds.device)[None, :].expand(b, t)
+    x = enc_embeds + _sinusoid(pos, cfg.d_model).to(enc_embeds.dtype)
     for r in range(cfg.encoder.n_layers):
         layer = functools.partial(blocks.apply_layer, cfg, ENCODER_LAYER,
                                   _index(enc["layers"], r), positions=pos,
                                   causal=False)
         if torch.is_grad_enabled():
-            x, _ = checkpoint(layer, x, use_reentrant=False)
+            x, _ = checkpoint(runtime.under_forward_context(layer), x,
+                              use_reentrant=False)
         else:
             x, _ = layer(x)
     return apply_norm(cfg, enc["final_norm"], x)

@@ -216,6 +216,11 @@ class PagedKVCache:
     def pool_stats(self) -> dict:
         return self.pool.snapshot()
 
+    def close(self) -> None:
+        """The (always caller-provided, possibly shared) pool is its
+        owner's to close; nothing per-cache needs shutting down, so this
+        is idempotent."""
+
     # ------------------------------------------------------------------
     def _store_page(self, page_idx: int, k_page: torch.Tensor,
                     v_page: torch.Tensor) -> None:

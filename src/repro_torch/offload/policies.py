@@ -31,7 +31,8 @@ ahead of the backward's use), recomputes itself from them and
 differentiates. A stage input that carries no parked name (the first
 layer's input) stays on the device. On the CPU, the park is a copy into a CPU tensor. On CUDA, a pin
 that fails raises: nothing falls back to pageable memory or to keeping the
-value on the device.
+value on the device. Under a mesh a tagged ``DTensor`` parks this device's
+shard, and its fetch wraps the shard again with the same placements.
 """
 
 from __future__ import annotations
@@ -46,23 +47,12 @@ import torch
 from repro_torch.models import remat, runtime
 from repro_torch.optim.adamw import tree_items, tree_map_with_path
 from repro_torch.pool.backend import HOST_KINDS, pinned_host
+from repro_torch.sharding.ops import is_dtensor
 
 OFFLOADABLE_NAMES = ("resid", "attn_out", "mlp_out")
 
 Runner = Callable[[Sequence[remat.Layer], torch.Tensor],
                   Tuple[torch.Tensor, torch.Tensor]]
-
-
-def _under_forward_impl(fn: Callable) -> Callable:
-    """``fn`` run under the attention path selected where it is wrapped: a
-    recompute in the backward runs on autograd's device thread, where the
-    context variable that selected the forward's path is unset."""
-    impl = runtime.selected_impl()
-
-    def run(*args):
-        with runtime.use_attention_impl(impl):
-            return fn(*args)
-    return run
 
 
 # ---------------------------------------------------------------------------
@@ -91,10 +81,12 @@ class _Checkpoint:
         if self.save_mm:
             kw["context_fn"] = _mm_saving_contexts
         if not self.per_layer:
-            return lambda layers, h: checkpoint(_under_forward_impl(
-                functools.partial(remat.run_layers, layers)), h, **kw)
+            return lambda layers, h: checkpoint(
+                runtime.under_forward_context(
+                    functools.partial(remat.run_layers, layers)), h, **kw)
         return lambda layers, h: remat.run_layers(
-            [functools.partial(checkpoint, _under_forward_impl(layer), **kw)
+            [functools.partial(checkpoint,
+                               runtime.under_forward_context(layer), **kw)
              for layer in layers], h)
 
 
@@ -141,12 +133,15 @@ class OffloadCounts:
 
 class _Parked:
     """One tagged value in host memory: its copy, the event that says the
-    copy has landed (CUDA), the stages whose backward still reads it, and
-    the device copy the first of them fetched."""
+    copy has landed (CUDA), the stages whose backward still reads it, the
+    device copy the first of them fetched, and, for a ``DTensor`` (whose
+    local shard is what is parked), its mesh, placements, shape and
+    stride."""
 
-    def __init__(self, host: torch.Tensor, event) -> None:
+    def __init__(self, host: torch.Tensor, event, like=None) -> None:
         self.host: Optional[torch.Tensor] = host
         self.event = event
+        self.like = like
         self.consumers = 0
         self.fetched: Optional[Tuple[torch.Tensor, Any]] = None
 
@@ -175,23 +170,28 @@ class _OffloadScope:
     def park(self, x: torch.Tensor) -> _Parked:
         """Copy ``x`` to host memory (asynchronously on CUDA: the copy
         stream waits for ``x``'s producer, and ``x``'s memory is kept until
-        the copy has read it)."""
+        the copy has read it). Of a ``DTensor``, this device's shard."""
         hit = self.lookup(x)
         if hit is not None:
             return hit
+        like, local = None, x.detach()
+        if is_dtensor(x):
+            like = (x.device_mesh, x.placements, x.shape, x.stride())
+            local = local.to_local()
         if self.d2h is None:
-            parked = _Parked(x.detach().to("cpu", copy=True), None)
+            parked = _Parked(local.to("cpu", copy=True), None, like)
         else:
-            host = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+            host = torch.empty(local.shape, dtype=local.dtype,
+                               pin_memory=True)
             self.d2h.wait_stream(torch.cuda.current_stream(self.device))
             with torch.cuda.stream(self.d2h):
-                host.copy_(x.detach(), non_blocking=True)
+                host.copy_(local, non_blocking=True)
                 event = torch.cuda.Event()
                 event.record(self.d2h)
-            x.record_stream(self.d2h)
-            parked = _Parked(host, event)
+            local.record_stream(self.d2h)
+            parked = _Parked(host, event, like)
         self._parked[id(x)] = (weakref.ref(x), parked)
-        self.counts.bytes_parked += x.numel() * x.element_size()
+        self.counts.bytes_parked += local.numel() * local.element_size()
         self.counts.parked += 1
         return parked
 
@@ -209,8 +209,8 @@ class _OffloadScope:
                 h.consumers += 1
         index = len(self.stages)
         self.stages.append(handles)
-        out = _Stage.apply(self, index, _under_forward_impl(fn), rebuild,
-                           len(acts), *acts, *leaves)
+        out = _Stage.apply(self, index, runtime.under_forward_context(fn),
+                           rebuild, len(acts), *acts, *leaves)
         self.tag(out[0] if isinstance(out, tuple) else out, name)
         return out
 
@@ -244,7 +244,12 @@ class _OffloadScope:
         parked.consumers -= 1
         if parked.consumers == 0:
             parked.fetched = parked.host = None
-        return dev
+        if parked.like is None:
+            return dev
+        from torch.distributed.tensor import DTensor
+        mesh, placements, shape, stride = parked.like
+        return DTensor.from_local(dev, mesh, placements, run_check=False,
+                                  shape=shape, stride=stride)
 
     def prefetch_stage(self, index: int) -> None:
         """Fetch the parked inputs of stage ``index`` ahead of its

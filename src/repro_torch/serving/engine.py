@@ -135,10 +135,17 @@ class ServeEngine:
         self._key_ns = f"serve{next(_ENGINE_IDS)}"
         self._kv_keys: list = []     # stable per-leaf pool keys
         self.stats = ServeStats()
+        self._closed = False
 
     def pool_stats(self) -> Optional[Dict[str, Any]]:
         """Pool traffic/occupancy snapshot (None when serving resident)."""
         return self.pool.snapshot() if self.pool is not None else None
+
+    def close(self) -> None:
+        """Mark the engine closed. The pool is always caller-provided
+        (session-owned) and is the caller's to close. Idempotent: safe to
+        call from both user code and a finalizer."""
+        self._closed = True
 
     # ------------------------------------------------------------------
     def _cache_round_trip(self, cache: Any) -> Any:

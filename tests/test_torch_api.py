@@ -393,6 +393,39 @@ def test_a_closed_session_and_what_it_handed_out_die_without_the_collector(
         gc.enable()
 
 
+def test_engine_and_paged_cache_close_leave_the_pool_open(model_and_params):
+    """``ServeEngine.close`` and ``PagedKVCache.close`` are idempotent and
+    leave the (caller-provided) pool to its owner: it still parks a value
+    on the host and fetches it back. ``HyperOffloadSession.close`` closes
+    every engine it handed out, as the reference's session does."""
+    model, params = model_and_params
+    pool = default_pool(device=CPU, device_capacity=1 << 20,
+                        host_capacity=1 << 20)
+    engine = ServeEngine(model, params, max_seq=MAX_SEQ, offload_kv=True,
+                         pool=pool)
+    cache = PagedKVCache.create(batch=1, max_seq=MAX_SEQ, page_size=8,
+                                n_kv_heads=CFG.n_kv_heads,
+                                head_dim=CFG.head_dim, pool=pool)
+    assert not engine._closed
+    for _ in range(2):
+        engine.close()
+        cache.close()
+    assert engine._closed
+    value = torch.arange(16, dtype=torch.float32)
+    pool.put("after-close", value, tier="host")
+    assert torch.equal(pool.get("after-close"), value)
+    pool.close()
+
+    cfg = OffloadConfig(mode="kv_offload", max_seq=MAX_SEQ, max_batch=2)
+    session = _session(cfg)
+    engines = [session.serve_engine(model, params),
+               session.serve_engine(model, params, offload_kv=False)]
+    assert not any(e._closed for e in engines)
+    session.close()
+    assert all(e._closed for e in engines)
+    session.close()         # idempotent
+
+
 def test_session_plan_cache_is_shared(model_and_params):
     model, params = model_and_params
     cfg = OffloadConfig(mode="kv_offload", max_seq=MAX_SEQ, max_batch=2)

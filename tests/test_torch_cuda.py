@@ -822,3 +822,161 @@ def test_granite_training_losses_equal_across_memory_modes(cuda_device):
     assert out[0][0][-1] < out[0][0][0]
     assert all(torch.equal(a, b) for a, b in zip(out[0][1], out[1][1]))
     assert dict(tops.launch_counts()) == before
+
+
+# ---------------------------------------------------------------------------
+# the model under a one-card mesh
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture
+def card_mesh(cuda_device):
+    """``make_debug_mesh((1, 1))`` on the card: a single-rank NCCL group,
+    destroyed after the test."""
+    from repro_torch.launch.mesh import close_mesh, make_debug_mesh
+    mesh = make_debug_mesh((1, 1))
+    try:
+        yield mesh
+    finally:
+        close_mesh()
+
+
+@pytest.mark.cuda
+def test_debug_mesh_on_the_card(card_mesh):
+    assert card_mesh.device_type == "cuda"
+    assert card_mesh.mesh_dim_names == ("data", "model")
+    assert tuple(card_mesh.shape) == (1, 1)
+
+
+@pytest.mark.cuda
+def test_phi3_under_the_rules_is_bit_for_bit_and_launches_kernels(card_mesh):
+    """phi3 ``.reduced()`` in bf16, parameters and cache placed by the
+    launch layer: prefill logits and two decode steps equal the calls
+    outside the rules bit for bit, and the flash and ring-decode launch
+    counts rise under the mesh as they do outside it (one launch per
+    attention layer per call)."""
+    import contextlib
+    from repro_torch.launch.shardings import (cache_shardings,
+                                              param_shardings, place)
+    from repro_torch.models.model import build_model
+    from repro_torch.sharding.rules import DEFAULT_RULES, axis_rules
+    cfg = REGISTRY["phi3-mini-3.8b"].reduced()
+    model = build_model(cfg)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = model.init(gen, torch.bfloat16)
+    tok = torch.randint(0, cfg.vocab_size, (2, 64), device="cuda",
+                        generator=gen, dtype=torch.int32)
+    rules = dict(DEFAULT_RULES)
+    p = place(params, param_shardings(params, card_mesh, rules), card_mesh)
+
+    def local(t):
+        return t.full_tensor() if hasattr(t, "full_tensor") else t
+
+    def run(prm, cache, mesh):
+        ctx = axis_rules(rules, mesh) if mesh is not None \
+            else contextlib.nullcontext()
+        with torch.no_grad(), ctx:
+            lg, _ = model.prefill(prm, {"tokens": tok}, cache)
+            logits = [local(lg)]
+            for i in range(2):
+                nxt = logits[-1].argmax(-1).to(torch.int32)
+                lg, _ = model.decode_step(prm, cache, nxt, 64 + i)
+                logits.append(local(lg))
+        return logits
+
+    n_attn = sum(seg.repeats * len(seg.pattern) for seg in cfg.segments)
+    tops.reset_launch_counts()
+    want = run(params, model.init_cache(2, 80, torch.bfloat16), None)
+    plain = tops.launch_counts()
+    assert plain["flash_attention"] == n_attn
+    assert plain["decode_attention"] == 2 * n_attn
+    cache = model.init_cache(2, 80, torch.bfloat16)
+    dcache = place(cache, cache_shardings(cache, card_mesh, rules), card_mesh)
+    tops.reset_launch_counts()
+    got = run(p, dcache, card_mesh)
+    assert tops.launch_counts() == plain
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("capacity_factor", [0.3, 4.0])
+def test_moe_ffn_sharded_on_the_card_is_moe_ffn(card_mesh, capacity_factor):
+    """granite's routing (40 experts, top-8) at narrow widths in bf16 on
+    the card: ``moe_ffn`` under the 1×1 mesh (``_moe_ffn_sharded``) equals
+    the local path bit for bit."""
+    import dataclasses
+    from repro_torch.launch.shardings import param_shardings, place
+    from repro_torch.models import moe
+    from repro_torch.sharding.rules import DEFAULT_RULES, axis_rules
+    base = REGISTRY["granite-moe-3b-a800m"]
+    cfg = dataclasses.replace(base.reduced(), d_model=64, moe=dataclasses.
+                              replace(base.moe, d_ff_expert=32,
+                                      capacity_factor=capacity_factor))
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    p = moe.init_moe_params(cfg, torch.bfloat16, torch.device("cuda"), gen)
+    x = torch.randn(4, 64, cfg.d_model, device="cuda", generator=gen,
+                    dtype=torch.bfloat16)
+    want_out, want_aux = moe.moe_ffn(cfg, p, x)
+    tree = {"ffn": p}
+    placed = place(tree, param_shardings(tree, card_mesh, DEFAULT_RULES),
+                   card_mesh)
+    with axis_rules(DEFAULT_RULES, card_mesh):
+        out, aux = moe.moe_ffn(cfg, placed["ffn"], x)
+    assert torch.equal(out.full_tensor(), want_out)
+    assert torch.equal(aux.full_tensor(), want_aux)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("remat", ["full", "offload"])
+@pytest.mark.parametrize("arch", ["phi3-mini-3.8b", "granite-moe-3b-a800m"])
+def test_training_under_the_rules_is_bit_for_bit(card_mesh, arch, remat):
+    """Two train steps of ``arch`` ``.reduced()`` in bf16 with a recompute
+    in the backward, parameters and moments placed on the 1×1 mesh, under
+    the rules: losses and parameters equal the steps outside them bit for
+    bit. The backward (and the recompute in it) runs on autograd's device
+    thread, which re-enters the forward's rules and mesh; without them
+    granite's recompute would take the local MoE path on ``DTensor``
+    weights. No kernel counts a launch (training runs the plain path)."""
+    import contextlib
+    from repro_torch.launch.shardings import param_shardings, place
+    from repro_torch.models.model import build_model
+    from repro_torch.optim.adamw import AdamWState, tree_items
+    from repro_torch.sharding.rules import DEFAULT_RULES, axis_rules
+    from repro_torch.training import (TrainStepConfig, init_train_state,
+                                      make_train_step)
+    cfg = REGISTRY[arch].reduced()
+    model = build_model(cfg)
+    toks = torch.randint(0, cfg.vocab_size, (2, 65), device="cuda",
+                         generator=torch.Generator(device="cuda").manual_seed(1))
+    batch = {"tokens": toks[:, :-1].int(), "targets": toks[:, 1:].int()}
+    ts = TrainStepConfig(remat=remat, peak_lr=1e-3, warmup=1)
+    rules = dict(DEFAULT_RULES)
+
+    def local(t):
+        return t.full_tensor() if hasattr(t, "full_tensor") else t
+
+    before = dict(tops.launch_counts())
+    out = []
+    for under in (False, True):
+        params, opt = init_train_state(
+            model, torch.Generator(device="cuda").manual_seed(0),
+            torch.bfloat16, ts, "cuda")
+        ctx = contextlib.nullcontext()
+        if under:
+            params = place(params, param_shardings(params, card_mesh, rules),
+                           card_mesh)
+            opt = AdamWState(opt.step, *(
+                place(m, param_shardings(m, card_mesh, rules), card_mesh)
+                for m in (opt.mu, opt.nu)))
+            ctx = axis_rules(rules, card_mesh)
+        step = make_train_step(model, ts)
+        losses = []
+        with ctx:
+            for _ in range(2):
+                params, opt, m = step(params, opt, batch)
+                losses.append(local(m["loss"]))
+        out.append((losses, [local(x) for _, x in tree_items(params)]))
+    assert all(torch.equal(a, b) for a, b in zip(out[0][0], out[1][0]))
+    assert all(torch.equal(a, b) for a, b in zip(out[0][1], out[1][1]))
+    assert dict(tops.launch_counts()) == before

@@ -242,6 +242,59 @@ def test_cross_attention_full_kv_and_decode_match_jax(whisper):
                                            {"xk": jk, "xv": jv}))
 
 
+@pytest.fixture(scope="module")
+def whisper_bf16():
+    """whisper at ``.reduced()`` with bf16 weights (the norms stay fp32, as
+    in the reference), and the JAX run it is held against: the encoder
+    output, forward logits and greedy tokens over fp32 ``enc_embeds``."""
+    jc, tc = JAX_REGISTRY[WHISPER].reduced(), TORCH_REGISTRY[WHISPER].reduced()
+    jm, tm = jax_build_model(jc), torch_build_model(tc)
+    jp = jm.init(jax.random.key(0), jnp.bfloat16)
+    tp = params_from_numpy(jax.tree.map(np.asarray, jp), CPU)
+    b, s, new = 2, 8, 4
+    batch = make_batch(tc, b, s, seed=11)
+    ref = {"enc": np.asarray(jax_tfm.encode(jc, jp, jnp.asarray(
+        batch["enc_embeds"]))),
+        "logits": np.asarray(jm.forward(jp, _j(batch))[0])}
+    cache = jm.init_cache(b, s + new, jnp.bfloat16)
+    logits, cache = jm.prefill(jp, _j(batch), cache)
+    toks = []
+    for i in range(new):
+        nxt = jnp.argmax(logits[:, -1], axis=-1).astype(jnp.int32)[:, None]
+        toks.append(np.asarray(nxt))
+        logits, cache = jm.decode_step(jp, cache, nxt,
+                                       jnp.asarray(s + i, jnp.int32))
+    ref["tokens"] = np.concatenate(toks, axis=1)
+    return tm, tp, batch, ref
+
+
+def test_bf16_whisper_encoder_runs_in_the_embeddings_type(whisper_bf16):
+    """fp32 embeddings over bf16 weights run the encoder (and the cross
+    keys and values made from its output) in fp32, as the reference
+    promotes. Encoder output at atol 1e-4 (fp32 sums in another order; an
+    encoder in bf16 misses by ~1e-2); logits at atol 2e-2 (the decoder
+    runs in bf16); greedy tokens equal."""
+    tm, tp, batch, ref = whisper_bf16
+    enc = torch_tfm.encode(tm.cfg, tp, torch.from_numpy(batch["enc_embeds"]))
+    assert enc.dtype == torch.float32
+    np.testing.assert_allclose(enc.numpy(), ref["enc"], atol=1e-4, rtol=0)
+    logits, _ = tm.forward(tp, _t(batch))
+    np.testing.assert_allclose(logits.float().numpy(), ref["logits"],
+                               atol=2e-2, rtol=0)
+    b, s = batch["tokens"].shape
+    new = ref["tokens"].shape[1]
+    cache = tm.init_cache(b, s + new, torch.bfloat16, device=CPU)
+    pb = {k: v for k, v in _t(batch).items()}
+    logits, cache = tm.prefill(tp, pb, cache)
+    assert cache["segments"][0]["p0"]["xk"].dtype == torch.bfloat16
+    toks = []
+    for i in range(new):
+        nxt = logits[:, -1].argmax(-1).to(torch.int32)[:, None]
+        toks.append(nxt)
+        logits, cache = tm.decode_step(tp, cache, nxt, s + i)
+    np.testing.assert_array_equal(torch.cat(toks, 1).numpy(), ref["tokens"])
+
+
 # ---------------------------------------------------------------------------
 # the model and the serving engine
 # ---------------------------------------------------------------------------

@@ -297,3 +297,135 @@ def test_the_new_configs_are_supported_at_full_size_and_reduced(arch):
         dataclasses.asdict(JAX_REGISTRY[arch].reduced())
     torch_blocks.check_supported(cfg)
     torch_blocks.check_supported(cfg.reduced())
+
+
+# ---------------------------------------------------------------------------
+# _moe_ffn_sharded: the dispatch per data shard under a mesh
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def one_device_mesh():
+    """A 1×1 ("data", "model") mesh on a single-rank gloo group, destroyed
+    when the module's tests are done."""
+    from repro_torch.launch.mesh import close_mesh, make_debug_mesh
+    mesh = make_debug_mesh((1, 1), device="cpu")
+    try:
+        yield mesh
+    finally:
+        close_mesh()
+
+
+@pytest.mark.parametrize("capacity_factor", [0.3, 4.0])
+def test_moe_ffn_sharded_on_one_device_is_moe_ffn_bit_for_bit(
+        one_device_mesh, capacity_factor):
+    """Under a 1×1 mesh and the default rules ``moe_ffn`` takes
+    ``_moe_ffn_sharded`` (the parameters placed as the launcher places
+    them): out and aux equal the local path's bit for bit, dropping (0.3)
+    and lossless (4.0)."""
+    from torch.distributed.tensor import DTensor
+    from repro_torch.launch.shardings import param_shardings, place
+    from repro_torch.sharding.rules import DEFAULT_RULES, axis_rules
+    _, _, tc, tp, x = _moe_pair(capacity_factor)
+    xt = torch.from_numpy(x)
+    want_out, want_aux = torch_moe.moe_ffn(tc, tp, xt)
+    tree = {"ffn": tp}
+    placed = place(tree, param_shardings(tree, one_device_mesh,
+                                         DEFAULT_RULES), one_device_mesh)
+    called = []
+    orig = torch_moe._moe_ffn_sharded
+
+    def spy(*a, **k):
+        called.append(1)
+        return orig(*a, **k)
+    torch_moe._moe_ffn_sharded = spy
+    try:
+        with axis_rules(DEFAULT_RULES, one_device_mesh):
+            out, aux = torch_moe.moe_ffn(tc, placed["ffn"], xt)
+    finally:
+        torch_moe._moe_ffn_sharded = orig
+    assert called == [1]
+    assert isinstance(out, DTensor)
+    assert torch.equal(out.full_tensor(), want_out)
+    assert torch.equal(aux.full_tensor(), want_aux)
+
+
+_RANK = """
+import sys, dataclasses
+import numpy as np, torch, torch.distributed as dist
+from torch.distributed.device_mesh import init_device_mesh
+from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+from repro_torch.configs import REGISTRY
+from repro_torch.launch.shardings import param_shardings, place
+from repro_torch.models import moe
+from repro_torch.sharding.rules import DEFAULT_RULES, axis_rules
+
+rank, d = int(sys.argv[1]), sys.argv[2]
+dist.init_process_group("gloo", init_method=f"file://{d}/store", rank=rank,
+                        world_size=4)
+mesh = init_device_mesh("cpu", (2, 2), mesh_dim_names=("data", "model"))
+data = np.load(f"{d}/in.npz")
+base = REGISTRY["granite-moe-3b-a800m"].reduced()
+out = {}
+for cf in (0.3, 4.0):
+    cfg = dataclasses.replace(base, moe=dataclasses.replace(
+        base.moe, capacity_factor=cf))
+    tree = {"ffn": {k: torch.from_numpy(data[f"{cf}/{k}"])
+                    for k in ("router", "w_gate", "w_up", "w_down")}}
+    p = place(tree, param_shardings(tree, mesh, DEFAULT_RULES), mesh)["ffn"]
+    x = distribute_tensor(torch.from_numpy(data[f"{cf}/x"]), mesh,
+                          [Shard(0), Replicate()])
+    with axis_rules(DEFAULT_RULES, mesh):
+        o, aux = moe.moe_ffn(cfg, p, x)
+    out[f"{cf}/out"] = o.full_tensor().numpy()
+    out[f"{cf}/aux"] = aux.full_tensor().numpy()
+    out[f"{cf}/placements"] = np.array(str(o.placements))
+if rank == 0:
+    np.savez(f"{d}/out.npz", **out)
+dist.destroy_process_group()
+"""
+
+
+def test_moe_ffn_sharded_on_four_ranks_matches_the_per_shard_reference(
+        tmp_path):
+    """granite ``.reduced()`` (4 experts, top-2) on a 4-rank gloo group,
+    2 data × 2 tensor-parallel ranks, one spawn for both cases (dropping
+    0.3, lossless 4.0). The reference is what ``shard_map`` runs: each
+    data shard's rows through ``repro.models.moe._moe_ffn_local``, the
+    outputs concatenated and the aux losses averaged. fp32: out at atol
+    1e-5 (only the tensor-parallel sum reassociates), aux at rtol 1e-6."""
+    import os
+    import subprocess
+    import sys
+    base = JAX_REGISTRY[GRANITE].reduced()
+    inputs, want = {}, {}
+    for cf in (0.3, 4.0):
+        jc = dataclasses.replace(base, moe=dataclasses.replace(
+            base.moe, capacity_factor=cf))
+        jp = jax_moe.init_moe_params(jc, jax.random.key(7), jnp.float32)
+        x = np.random.default_rng(8).standard_normal(
+            (4, 16, jc.d_model)).astype(np.float32)
+        for k, v in jp.items():
+            inputs[f"{cf}/{k}"] = np.asarray(v)
+        inputs[f"{cf}/x"] = x
+        shards = [jax_moe._moe_ffn_local(jc, jp, jnp.asarray(x[i:i + 2]))
+                  for i in (0, 2)]
+        want[cf] = (np.concatenate([np.asarray(o) for o, _ in shards]),
+                    np.mean([float(a) for _, a in shards]))
+    np.savez(tmp_path / "in.npz", **inputs)
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = {**os.environ, "PYTHONPATH": os.path.join(repo, "src")}
+    procs = [subprocess.Popen([sys.executable, "-c", _RANK, str(r),
+                               str(tmp_path)], env=env, cwd=repo,
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True) for r in range(4)]
+    errs = [p.communicate(timeout=240)[1] for p in procs]
+    assert all(p.returncode == 0 for p in procs), "\n".join(errs)
+    got = np.load(tmp_path / "out.npz")
+    for cf, (out, aux) in want.items():
+        np.testing.assert_allclose(got[f"{cf}/out"], out, atol=1e-5, rtol=0)
+        np.testing.assert_allclose(got[f"{cf}/aux"], aux, rtol=1e-6)
+        # out split by rows over "data", replicated over "model"
+        assert str(got[f"{cf}/placements"]) == "(Shard(dim=0), Replicate())"
+    # the dropping case drops: its outputs differ from the lossless one's
+    assert np.abs(got["0.3/out"] - got["4.0/out"]).max() > 1e-3
