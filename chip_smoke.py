@@ -176,17 +176,37 @@ non-zero exit):
    ``moe_ffn`` of one layer over B=4 × 512 through ``_moe_ffn_sharded``
    under the 1×1 mesh against the local path, out and aux bit for bit;
    then a full-depth prefill under the mesh, logits bit for bit.
-19. dryrun — (last) ``python -m repro_torch.launch.dryrun`` for six
+19. dryrun — ``python -m repro_torch.launch.dryrun`` for six
    (arch × shape × mesh) combinations, one subprocess each, all at once:
    each prints ``OK``; per-device argument GB and the three terms.
+20. entry  — (last) the entry points outside the package, in process,
+   each given the card as its device: the continuous-serving launcher
+   ``repro_torch.launch.serve_trace``
+   (the counterpart of the repository root's ``launch/serve.py``) at full
+   width and depth in bf16 over its own 8-request trace: phi3-mini in
+   ``continuous``, ``kv_offload`` with ``--trace-out``/``--stats-json``
+   (the trace through ``obs.check``, a hidden fraction, the stats' sched
+   and pool sections) and ``kv_offload --slo --overload 3``, and zamba2-7b
+   in ``continuous``: tokens equal to the trace's, one flash launch per
+   attention layer per prompt, the ring on the decode steps, zamba2's SSD
+   launches; ``repro_torch.examples``' quickstart (60 training steps with
+   activation and moment offload, resident and ``kv_offload`` generations
+   equal), serve_offload (``attend`` within 2e-5 of the dense oracle,
+   ``attend_fused`` through the paged kernel within 2e-5 of ``attend``;
+   the scheduler demo with ``slo``), train_100m at its defaults (300 steps,
+   B=8, S=256: the loss falls, the resume bit for bit) and schedule_viz
+   under ``H100`` (modelled, host arithmetic). The serving entry points'
+   calls to the kernel wrappers are recorded, and each kernel is held
+   against its plain version at every shape they called it with (zamba2's
+   SSD scan at the chunk of each prompt length, 4 to 16 tokens).
 
 Output: the card's name and power limit, one line per phase (and one with
 its seconds), the total
 wall time, a JSON line ``{"kernels": [...]}`` and, last, ``{"ok": true,
 "device": {...}}``. The
-launch counts in the kernels line are the sums over phases 3 to 18 of each
-phase's own count (the train phase's and the training of phases 11, 14
-and 15 are 0; phase 17 counts nothing):
+launch counts in the kernels line are the sums over phases 3 to 18 and
+20 of each phase's own count (the train phase's, the training of phases
+11, 14 and 15 and train_100m's are 0; phase 17 counts nothing):
 every count is set to 0 just before a phase drives the port and read just
 after. Without a CUDA device, or without the port
 beside this file, it prints no result and exits with 2.
@@ -194,6 +214,7 @@ beside this file, it prints no result and exits with 2.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -377,6 +398,7 @@ def main() -> int:
     run("whisper", phase_whisper, torch, dev, kernels)
     run("vlm", phase_vlm, torch, dev, kernels)
     run("dryrun", phase_dryrun, torch)
+    run("entry", phase_entry, torch, dev, kernels)
     for k in kernels.values():
         assert k["launches"] > 0, f"{k['name']} never launched on a path"
     log("total", seconds=f"{time.perf_counter() - t_start:.2f}")
@@ -3684,6 +3706,362 @@ def phase_dryrun(torch) -> None:
                 collectives=json.dumps(rec["collectives"]),
                 trace_s=rec["trace_s"], place_s=rec["place_s"])
     assert not failed, f"dry-run combinations failed: {failed}"
+
+
+# ---------------------------------------------------------------------------
+# 20. entry: the entry points outside the package
+# ---------------------------------------------------------------------------
+
+#: the continuous-serving launcher's runs (``repro_torch.launch.serve_trace``,
+#: the counterpart of the repository root's ``launch/serve.py``): its own
+#: trace (8 requests, prompts 4-16, 2-12 new tokens, 3 slots, max_seq 48)
+#: at full width and depth in bf16; ``{tmp}`` is a temporary directory
+ENTRY_LAUNCHES = (
+    ("phi3-continuous", ["--arch", ARCH, "--mode", "continuous"]),
+    ("phi3-kv_offload-traced", ["--arch", ARCH, "--mode", "kv_offload",
+                                "--trace-out", "{tmp}/trace.json",
+                                "--stats-json", "{tmp}/stats.json"]),
+    ("phi3-kv_offload-slo", ["--arch", ARCH, "--mode", "kv_offload",
+                             "--slo", "--overload", "3"]),
+    ("zamba2-continuous", ["--arch", HYBRID_ARCH, "--mode", "continuous"]),
+)
+ENTRY_LAUNCH_FLAGS = ["--dtype", "bfloat16"]
+#: train_100m's flags: its defaults (300 steps, B=8, S=256) and a
+#: temporary --ckpt-dir
+ENTRY_TRAIN_ARGV: list = []
+ENTRY_PAGED_TOL = 2e-5      # fp32, TF32 off
+
+
+def phase_entry(torch, dev, kernels) -> None:
+    """The port's entry points outside the package, in process, each with
+    ``--device``/``device=`` naming the card: the launcher
+    ``repro_torch.launch.serve_trace`` (``ENTRY_LAUNCHES``), then
+    ``repro_torch.examples``' quickstart, serve_offload (the paged demo,
+    then ``--continuous --slo``), train_100m and schedule_viz. Each entry
+    point's launches are counted from 0 just before it and read just
+    after. The model's calls to the kernel wrappers in the serving entry
+    points are recorded (``kernel_calls``), and each kernel is then held
+    against its plain version at every signature they recorded."""
+    calls: set = set()
+    with kernel_calls(calls):
+        entry_launcher(torch, dev, kernels)
+        entry_quickstart(torch, dev, kernels)
+        entry_serve_offload(torch, dev, kernels)
+    entry_kernels(torch, dev, calls)
+    entry_train_100m(torch, dev, kernels)
+    entry_schedule_viz()
+
+
+@contextlib.contextmanager
+def kernel_calls(calls: set):
+    """Record the signature of every call made to the kernel wrappers of
+    ``repro_torch.kernels.ops`` while inside (shapes, types and options;
+    no tensor is kept), then put the wrappers back. The model looks the
+    wrappers up at each call, so the recorded calls are the main path's
+    own, and they launch the kernels as before."""
+    from repro_torch.kernels import ops
+
+    names = ("flash_attention", "decode_attention", "ssd_scan")
+    saved = {name: getattr(ops, name) for name in names}
+
+    def flash_attention(q, k, v, **kw):
+        calls.add(("flash", tuple(q.shape), tuple(k.shape), q.dtype,
+                   tuple(sorted(kw.items()))))
+        return saved["flash_attention"](q, k, v, **kw)
+
+    def decode_attention(q, k, v, pos, **kw):
+        rows = pos.dtype if getattr(pos, "dim", lambda: 0)() == 1 else None
+        calls.add(("decode", tuple(q.shape), tuple(k.shape), k.dtype, rows,
+                   tuple(sorted(kw.items()))))
+        return saved["decode_attention"](q, k, v, pos, **kw)
+
+    def ssd_scan(x, a, b_mat, c_mat, chunk):
+        calls.add(("ssd", tuple(x.shape), tuple(b_mat.shape), b_mat.dtype,
+                   b_mat.stride(2) == 0, chunk))
+        return saved["ssd_scan"](x, a, b_mat, c_mat, chunk)
+
+    for name, fn in zip(names, (flash_attention, decode_attention, ssd_scan)):
+        setattr(ops, name, fn)
+    try:
+        yield calls
+    finally:
+        for name, fn in saved.items():
+            setattr(ops, name, fn)
+
+
+def entry_kernels(torch, dev, calls: set) -> None:
+    """Each kernel held against its plain version at every signature the
+    serving entry points called it with (``kernel_calls``): the same
+    shapes, types and options on inputs drawn from a seeded generator
+    (bf16 2e-2, fp32 2e-5, the SSD scan at ``SSD_ATOL``/``SSD_RTOL`` as in
+    the kernels phase). The launcher's prompts are 4, 8, 12 or 16 tokens
+    (more after a preemption), so zamba2's SSD scan runs one chunk of
+    each such length, most of them a partial 16-row tile; the ring decode
+    runs at per-row device positions, the fp32 examples' at a scalar.
+    These launches count on no path (each entry point's counts were read
+    before)."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import (
+        decode_attention_ref, flash_attention_ref, ssd_scan_ref,
+    )
+
+    gen = torch.Generator(device=dev).manual_seed(22)
+    tols = {torch.bfloat16: 2e-2, torch.float32: 2e-5}
+
+    def randn(*shape, dtype=torch.float32):
+        return torch.randn(*shape, device=dev, generator=gen).to(dtype)
+
+    def name(kind, *dims):
+        return f"entry/{kind}/" + "x".join(
+            str(d).removeprefix("torch.") for d in dims)
+
+    kinds = {kind: sorted((c for c in calls if c[0] == kind), key=str)
+             for kind in ("flash", "decode", "ssd")}
+    assert all(kinds.values()), {k: len(v) for k, v in kinds.items()}
+    for _, q_shape, k_shape, dtype, kw in kinds["flash"]:
+        kw = dict(kw)
+        q = randn(*q_shape, dtype=dtype)
+        k, v = (randn(*k_shape, dtype=dtype) for _ in range(2))
+        ref = flash_attention_ref(q.transpose(1, 2), k.transpose(1, 2),
+                                  v.transpose(1, 2), **kw).transpose(1, 2)
+        check(torch, name("flash", *q_shape, k_shape[2], dtype),
+              ops.flash_attention(q, k, v, **kw), ref, tols[dtype])
+    for _, q_shape, k_shape, dtype, rows, kw in kinds["decode"]:
+        b, c = k_shape[:2]
+        q = randn(*q_shape, dtype=dtype)
+        k, v = (randn(*k_shape, dtype=dtype) for _ in range(2))
+        if rows is None:
+            pos = int(torch.randint(c, (1,), device=dev, generator=gen))
+        else:
+            pos = torch.randint(c, (b,), device=dev, generator=gen).to(rows)
+        ref = decode_attention_ref(q[:, 0], k.transpose(1, 2),
+                                   v.transpose(1, 2), pos, **dict(kw))
+        check(torch, name("decode", *k_shape, dtype,
+                          "rows" if rows is not None else "scalar"),
+              ops.decode_attention(q, k, v, pos, **dict(kw))[:, 0], ref,
+              tols[dtype])
+    for _, x_shape, bc_shape, dtype, shared, chunk in kinds["ssd"]:
+        b, s, h, p = x_shape
+        x, a = randn(*x_shape), -randn(b, s, h).abs() * 0.1
+        bm, cm = ((randn(b, s, 1, bc_shape[3]) * 0.3).to(dtype)
+                  .expand(*bc_shape) if shared else
+                  (randn(*bc_shape) * 0.3).to(dtype) for _ in range(2))
+        y, state = ops.ssd_scan(x, a, bm, cm, chunk)
+        y_ref, state_ref = ssd_scan_ref(x, a, bm, cm, chunk)
+        for what, out, ref in (("y", y, y_ref), ("state", state, state_ref)):
+            check(torch, name("ssd", *x_shape, bc_shape[3], dtype,
+                              f"chunk{chunk}", what),
+                  out, ref, SSD_ATOL, rtol=SSD_RTOL)
+    log("entry", check="kernels at the entry points' own signatures",
+        signatures=json.dumps({k: len(v) for k, v in kinds.items()}),
+        flash_lengths=sorted({c[1][1] for c in kinds["flash"]}),
+        ssd_chunks=sorted({c[5] for c in kinds["ssd"]}),
+        decode_rows=sorted({c[2][0] for c in kinds["decode"]}))
+
+
+def _entry_counts(kernels, counts) -> dict:
+    for name, n in counts.items():
+        kernels[name]["launches"] += n
+    return counts
+
+
+def entry_launcher(torch, dev, kernels) -> None:
+    """``serve_trace.run`` for each of ``ENTRY_LAUNCHES``: the tokens equal
+    the trace's requested tokens; one flash launch per attention layer per
+    admitted prompt, the ring kernel on the decode steps and (zamba2) one
+    SSD launch per Mamba2 layer per prompt; the traced run's file passes
+    ``obs.check`` and its overlap has a hidden fraction; the stats JSON
+    holds ``sched`` and ``pool``. Logs steps, wall s, ms a step, the SLO
+    run's goodput and attainment, peak device GB."""
+    import tempfile
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve_trace
+    from repro_torch.obs.check import validate_file
+
+    for label, argv in ENTRY_LAUNCHES:
+        with tempfile.TemporaryDirectory() as tmp:
+            argv = [a.format(tmp=tmp) for a in argv] + ENTRY_LAUNCH_FLAGS \
+                + ["--device", str(dev)]
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            # the main path: counts set to 0 just before, read just after
+            ops.reset_launch_counts()
+            res = serve_trace.run(argv)
+            counts = _entry_counts(kernels, ops.launch_counts())
+            peak = torch.cuda.max_memory_allocated() / 1e9
+            n_attn, n_mamba = mixers(res["config"])
+            fields = dict(run=label, arch=res["arch"], requests=res["requests"],
+                          tokens=res["tokens"],
+                          requested_tokens=res["requested_tokens"],
+                          steps=res["steps"], wall_s=f"{res['wall_s']:.3f}",
+                          ms_per_step=f"{res['wall_s'] / res['steps'] * 1e3:.2f}",
+                          launches=json.dumps(counts),
+                          max_allocated_gb=f"{peak:.2f}")
+            sched = res["stats"]["sched"]
+            fields.update(joins=sched["joins"],
+                          pages_parked=sched["pages_parked"],
+                          cold_spills=sched["cold_spills"],
+                          prefetch_fetches=sched["prefetch"]["fetches_issued"])
+            if "slo" in res:
+                slo = res["slo"]
+                fields.update(
+                    goodput_tok_per_step=f"{slo['goodput_tok_per_step']:.4f}",
+                    preemptions=slo["preemptions"], shed=slo["shed"],
+                    attainment=json.dumps({
+                        cls: c["ttft_attainment"]
+                        for cls, c in sorted(slo["classes"].items())}))
+            if "overlap" in res:
+                ov = res["overlap"]
+                fields.update(transfers=ov["transfers"],
+                              hidden_s=f"{ov['hidden_s']:.4f}",
+                              exposed_s=f"{ov['exposed_s']:.4f}",
+                              hidden_fraction=ov["hidden_fraction"])
+                bad = validate_file(f"{tmp}/trace.json")
+                fields["trace_check_errors"] = len(bad)
+                assert bad == [], bad[:5]
+                assert ov["transfers"] > 0 and ov["hidden_fraction"] is not None
+                stats = json.loads(Path(f"{tmp}/stats.json").read_text())
+                assert "sched" in stats and "pool" in stats, list(stats)
+                fields["stats_json_keys"] = ",".join(sorted(stats))
+            log("entry", **fields)
+        assert res["tokens"] == res["requested_tokens"], res["tokens"]
+        preempted = res.get("slo", {}).get("preemptions", 0)
+        assert counts["decode_attention"] > 0, counts
+        assert counts["paged_decode_attention"] == 0, counts
+        if not preempted:
+            assert counts["flash_attention"] == res["requests"] * n_attn, \
+                counts
+            assert counts["ssd_scan"] == res["requests"] * n_mamba, counts
+        if n_mamba:
+            assert counts["ssd_scan"] > 0, counts
+        torch.cuda.empty_cache()
+
+
+def entry_quickstart(torch, dev, kernels) -> None:
+    """``examples.quickstart.run`` at its own settings (phi3 ``.reduced()``,
+    fp32, 60 steps with activation and moment offload, then 16 tokens
+    resident and ``kv_offload``): the loss falls, the moments are in
+    pinned host memory, the two generations are equal (the example
+    raises otherwise); flash and the ring kernel launched."""
+    from repro_torch.examples import quickstart
+    from repro_torch.kernels import ops
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    res = quickstart.run(device=dev)
+    counts = _entry_counts(kernels, ops.launch_counts())
+    s = res["stats"]
+    log("entry", run="quickstart",
+        losses=json.dumps({k: round(v, 6) for k, v in res["losses"].items()}),
+        ms_per_train_step=f"{res['ms_per_step']:.2f}",
+        moments=res["moments_device"], moments_pinned=res["moments_pinned"],
+        identical=res["identical"], cache_round_trips=res["round_trips"],
+        pool_puts=s["pool"]["puts"], pool_gets=s["pool"]["gets"],
+        fetches_issued=s["pool"]["transfer"]["issued"],
+        launches=json.dumps(counts),
+        max_allocated_gb=f"{torch.cuda.max_memory_allocated() / 1e9:.3f}")
+    assert res["losses"][59] < res["losses"][0], res["losses"]
+    assert res["identical"] and res["moments_pinned"]
+    assert counts["flash_attention"] > 0 and counts["decode_attention"] > 0, \
+        counts
+
+
+def entry_serve_offload(torch, dev, kernels) -> None:
+    """``examples.serve_offload``: the paged demo (fp32, B=2, 8 q / 4 kv
+    heads of 64, 16 pages of 32 in the host tier, 64 decode steps):
+    ``attend`` over every page within ``ENTRY_PAGED_TOL`` of the dense
+    oracle, ``attend_fused`` (the paged kernel, launched) within it of
+    ``attend``; then ``run_continuous(slo=True)``."""
+    from repro_torch.examples import serve_offload
+    from repro_torch.kernels import ops
+
+    ops.reset_launch_counts()
+    res = serve_offload.run(device=dev)
+    counts = _entry_counts(kernels, ops.launch_counts())
+    s = res["pool"]
+    log("entry", run="serve_offload-paged",
+        err_all=f"{res['err_all']:.3e}",
+        fused_max_abs_diff=f"{res['fused_max_abs_diff']:.3e}",
+        fused_bitwise=res["fused_bitwise"], tol=ENTRY_PAGED_TOL,
+        top_k=json.dumps({k: dict(fetched=v["fetched"],
+                                  err=float(f"{v['err']:.4e}"),
+                                  ms=round(v["s"] * 1e3, 3))
+                          for k, v in res["top_k"].items()}),
+        fused_ms=f"{res['fused_s'] * 1e3:.3f}",
+        decode_ms_per_step=f"{res['decode_s'] / 64 * 1e3:.3f}",
+        flushes=res["decode_flushes"], length=res["length"],
+        buffer_hits=res["buffer_hits"], buffer_misses=res["buffer_misses"],
+        pool_puts=s["puts"], pool_gets=s["gets"],
+        host_entries=s["tier/host"]["entries"],
+        host_backend=s["tier/host"]["backend"],
+        fetches_issued=s["transfer"]["issued"],
+        waits_blocked=s["transfer"]["waits_blocked"],
+        launches=json.dumps(counts))
+    assert res["err_all"] <= ENTRY_PAGED_TOL, res["err_all"]
+    assert res["fused_max_abs_diff"] <= ENTRY_PAGED_TOL, \
+        res["fused_max_abs_diff"]
+    assert counts["paged_decode_attention"] == 2, counts   # warm + timed
+    ops.reset_launch_counts()
+    res = serve_offload.run_continuous(slo=True, device=dev)
+    counts = _entry_counts(kernels, ops.launch_counts())
+    log("entry", run="serve_offload-continuous-slo", requests=res["requests"],
+        tokens=res["tokens"], steps=res["steps"], shed=res["shed"],
+        preemptions=res["preemptions"], pages_parked=res["pages_parked"],
+        cold_spills=res["cold_spills"], wall_s=f"{res['wall_s']:.3f}",
+        launches=json.dumps(counts))
+    assert res["requests"] == 10 and counts["decode_attention"] > 0, counts
+
+
+def entry_train_100m(torch, dev, kernels) -> None:
+    """``examples.train_100m.run`` at its defaults (``ENTRY_TRAIN_ARGV``)
+    into a temporary ``--ckpt-dir``: the parameter count equals the meta
+    count, the mean of the last 25 losses lies below the first 25's, the
+    checkpoint of the last step restores the live parameters bit for bit,
+    and no kernel launches (training runs the plain path). Logs tok/s, ms
+    a step and peak device GB."""
+    import tempfile
+
+    from repro_torch.examples import train_100m
+    from repro_torch.kernels import ops
+
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        res = train_100m.run(ENTRY_TRAIN_ARGV + ["--ckpt-dir", tmp,
+                                                 "--device", str(dev)])
+        counts = _entry_counts(kernels, ops.launch_counts())
+    losses = res["losses"]
+    first, last = (sum(x) / len(x) for x in (losses[:25], losses[-25:]))
+    expected = train_100m.param_count(train_100m.make_100m_config())
+    log("entry", run="train_100m", params=res["params"],
+        meta_params=expected, steps=len(losses),
+        tok_per_s=f"{res['tokens'] / res['train_s']:.1f}",
+        ms_per_step=f"{res['train_s'] / len(losses) * 1e3:.2f}",
+        loss_first25=f"{first:.4f}", loss_last25=f"{last:.4f}",
+        loss_first=f"{losses[0]:.4f}", loss_last=f"{losses[-1]:.4f}",
+        resumed_at=res["resumed_at"], bitwise=res["bitwise"],
+        launches=json.dumps(counts),
+        max_allocated_gb=f"{torch.cuda.max_memory_allocated() / 1e9:.3f}")
+    assert res["params"] == expected
+    assert last < first, (first, last)
+    assert res["bitwise"] is True and res["resumed_at"] == len(losses)
+    assert not any(counts.values()), counts
+
+
+def entry_schedule_viz() -> None:
+    """``examples.schedule_viz.run`` under the port's ``H100`` spec: the
+    planner's modelled totals and peaks (host arithmetic, no card work);
+    the refined order's peak at most the early order's."""
+    from repro_torch.examples import schedule_viz
+
+    res = schedule_viz.run()
+    log("entry", run="schedule_viz", modelled=True,
+        **{k: (f"{v:.6f}" if isinstance(v, float) else v)
+           for k, v in res.items()})
+    assert res["refined_peak_bytes"] <= res["early_peak_bytes"], res
 
 
 if __name__ == "__main__":

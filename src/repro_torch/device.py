@@ -2,7 +2,8 @@
 
 from __future__ import annotations
 
-from typing import Optional, Union
+import time
+from typing import Any, Callable, Optional, Tuple, Union
 
 import torch
 
@@ -23,6 +24,18 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {dev}")
     return dev
+
+
+def synced_s(dev: torch.device, fn: Callable[[], Any]) -> Tuple[Any, float]:
+    """(fn(), seconds on the host clock), a CUDA device drained on both
+    sides so that the seconds cover the work ``fn`` queued."""
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    out = fn()
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    return out, time.perf_counter() - t0
 
 
 def device_of(tree) -> Optional[torch.device]:

@@ -17,7 +17,6 @@ prompts are drawn from a CPU generator with the same seed.
 from __future__ import annotations
 
 import argparse
-import time
 from typing import Optional, Sequence
 
 import torch
@@ -25,20 +24,9 @@ import torch
 from repro_torch.api import HyperOffloadSession, OffloadConfig
 from repro_torch.api.config import CACHE_DTYPES
 from repro_torch.configs import REGISTRY
-from repro_torch.device import resolve_device
+from repro_torch.device import resolve_device, synced_s
 from repro_torch.models.model import build_model
 from repro_torch.pool import TierTopology, sweep_topologies
-
-
-def _synced_s(dev: torch.device, fn):
-    """(fn(), seconds), the card drained on both sides."""
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
-    t0 = time.perf_counter()
-    out = fn()
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
-    return out, time.perf_counter() - t0
 
 
 def main(argv: Optional[Sequence[str]] = None) -> int:
@@ -99,7 +87,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                                    temperature=args.temperature,
                                    seed=args.seed)
 
-        out, dt = _synced_s(dev, generate)
+        out, dt = synced_s(dev, generate)
         print(f"arch={cfg.name} mode={args.mode} device={dev} "
               f"dtype={args.dtype} "
               f"tiers={'/'.join(session.pool.spill_order)} "
@@ -111,7 +99,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
               f"pool_gets={s['pool']['gets']}", flush=True)
         if args.recalibrate:
             spec = session.recalibrate()
-            again, dt2 = _synced_s(dev, generate)
+            again, dt2 = synced_s(dev, generate)
             print(f"recalibrated hw={spec.name} "
                   f"d2r={spec.pool_bw_d2r:.3g}B/s "
                   f"r2d={spec.pool_bw_r2d:.3g}B/s "

@@ -41,7 +41,11 @@ for name in ("repro_torch.models.ssm", "repro_torch.kernels.ssd_scan",
              "repro_torch.launch.train", "repro_torch.models.moe",
              *(f"repro_torch.configs.{m}" for m in (
                  "codeqwen1_5_7b", "granite_moe_3b_a800m", "mixtral_8x22b",
-                 "minicpm3_4b"))):
+                 "minicpm3_4b")),
+             "repro_torch.launch.serve_trace", "repro_torch.examples",
+             *(f"repro_torch.examples.{m}" for m in (
+                 "schedule_viz", "serve_offload", "quickstart",
+                 "train_100m"))):
     assert name in names, name
 assert "repro" not in sys.modules, "the JAX package was imported"
 assert not any(m == "jax" or m.startswith("jax.") for m in sys.modules
