@@ -2132,8 +2132,8 @@ def capture_first_spill(torch, backend):
     (a clone of the value and the handle)."""
     put, first = backend.put, {}
 
-    def keep(value, reuse=None):
-        handle = put(value, reuse)
+    def keep(value, reuse=None, timings=None):
+        handle = put(value, reuse, timings)
         if "page" not in first and isinstance(value, torch.Tensor):
             first["page"], first["handle"] = value.clone(), handle
         return handle
@@ -2260,7 +2260,7 @@ def session_telemetry(sess, label: str) -> None:
                                        else round(v["hidden_fraction"], 4))}
                for k, v in rep["by_tier"].items()}
     errs = OverlapAnalyzer.from_tracer(sess.tracer).validate(
-        sess.pool.snapshot()["transfer"])
+        sess.pool.snapshot()["transfer"], clock=sess.transfer.clock())
     trace_snap = sess.tracer.snapshot()
     with tempfile.TemporaryDirectory() as tmp:
         path = str(Path(tmp) / "session_trace.json")

@@ -177,6 +177,13 @@ class HyperOffloadSession:
                                 else s.prefix_cache.snapshot()))
         reg.register_collector("plans_cached",
                                collector(lambda s: len(s._plan_cache)))
+        if self.config.telemetry.enable:
+            # host- and device-clock readings the reference does not keep
+            reg.register_collector(
+                "sched_clock",
+                collector(HyperOffloadSession._collect_sched_clock))
+            reg.register_collector(
+                "transfer_clock", collector(lambda s: s.transfer.clock()))
 
     def _collect_serve(self) -> Dict[str, Any]:
         serve = {"engines": len(self._engines), "prefill_tokens": 0,
@@ -222,6 +229,13 @@ class HyperOffloadSession:
         if slo is not None:
             sched["slo"] = slo
         return sched
+
+    def _collect_sched_clock(self) -> Dict[str, Any]:
+        out = {"admissions": 0, "queue_wait_s": 0.0}
+        for s in self._schedulers:
+            out["admissions"] += s.clock.admissions
+            out["queue_wait_s"] += s.clock.queue_wait_s
+        return out
 
     def _collect_paged(self) -> Dict[str, Any]:
         paged = {"caches": len(self._paged), "fetches": 0, "flushes": 0,
@@ -436,9 +450,12 @@ class HyperOffloadSession:
         plus aggregated serve/sched/paged counters across every subsystem
         this session handed out. Implemented as the session registry's
         ``collect()`` (the legacy stats blocks are registered collectors),
-        so the shape is identical whether telemetry is on or off — with
-        telemetry on, one extra ``"telemetry"`` key carries the latency
-        histograms and the trace-ring state."""
+        so its counters have one shape whether telemetry is on or off — with
+        telemetry on, two more collectors carry clock readings
+        (``"sched_clock"``: admissions and their host seconds from submit to
+        slot; ``"transfer_clock"``: the transfer engine's ``clock()``), and
+        one extra ``"telemetry"`` key carries the latency histograms and the
+        trace-ring state."""
         out = self.registry.collect()
         if self.config.telemetry.enable:
             out["telemetry"] = {

@@ -26,7 +26,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("flash_attention.cu", "paged_attention.cu", "decode_attention.cu",
-           "ssd_scan.cu")
+           "ssd_scan.cu", "timed_copy.cu")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = ("-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -53,6 +53,8 @@ _SIGNATURES = {
     "ssd_scan_fwd": ([_P] * 6 + [_I] * 7 + [_LL] * 12 + [_P], _I),
     "ssd_scan_smem_bytes": ([_I] * 6, ctypes.c_size_t),
     "hyperoffload_cuda_error_string": ([_I], ctypes.c_char_p),
+    "hyperoffload_timed_copy": ([_P, _P, ctypes.c_size_t, _P, _P, _P], _I),
+    "hyperoffload_copy_times": ([_P, _P, _P, ctypes.POINTER(_F)], _I),
 }
 
 _lock = threading.Lock()

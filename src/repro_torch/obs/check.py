@@ -8,7 +8,10 @@ and every transfer handle's events are ordered execution-start <=
 complete <= wait-resolution. (The transfer span covers execution only —
 queue time shows up as ``transfer.backpressure`` — so a blocked wait may
 legitimately *start* before its transfer span does; wait-start ordering
-is only an invariant for overlapped waits.) Run as
+is only an invariant for overlapped waits.) On CUDA a transfer span is the
+copy's interval on the copy stream, mapped from the device's timer onto
+the host clock through an anchor, while the wait is read off the host
+clock: the two are compared within ``_EPS_US``. Run as
 
     PYTHONPATH=src python -m repro_torch.obs.check TRACE.json
 
@@ -28,7 +31,17 @@ from repro_torch.obs.overlap import (
 __all__ = ["validate_events", "validate_file"]
 
 _PHASES = {"X", "i", "M"}
-#: float slop for cross-thread perf_counter comparisons (microseconds)
+#: tolerance of the ordering checks (microseconds): float slop between
+#: threads' perf_counter readings and, on CUDA, the error of the anchor that
+#: maps a copy's timing events onto the host clock (``CopyClock``). On an
+#: NVIDIA H100 under torch.profiler the copy spans ended 87-96 us after the
+#: profiler's record of the same copies with the profiler's clock mapped by
+#: a spin kernel's launch (which puts its events early by the launch), and
+#: 66-75 us before it with the clock mapped by a host reading inside a
+#: ``record_function`` range: the profiler places the anchor's error no
+#: closer than that 162 us between its two mappings. What this checker asks
+#: (a wait ends no earlier than its transfer) held in the session traces
+#: that ``chip_smoke.py`` checks on the card
 _EPS_US = 50.0
 
 

@@ -10,19 +10,30 @@ often a consumer found its transfer done; this analyzer reconstructs the
 - every transfer emits a ``transfer`` span (execution start → complete —
   queue time is excluded, so it can't masquerade as hidden time; it shows
   up as ``transfer.backpressure`` instead) carrying its handle ``seq`` and
-  source/destination tiers;
+  source/destination tiers. On CUDA the span is the copy's own interval on
+  the copy stream, from two timing events mapped onto the host clock
+  (``pool.transfer.CopyClock``), so neither the copy stream's wait for the
+  submitter's compute nor the worker thread's wait for its event counts as
+  transfer time; on the CPU it is the host interval of the transfer's
+  thunk;
 - every first consumer wait emits a ``transfer.wait`` span (wait start →
   wait end) with ``hit`` = the transfer was already done.
 
-For one transfer, **exposed** time is its wait's duration when the wait
-blocked (the consumer stalled for exactly that long), and **hidden** time
-is the rest of the in-flight interval — transfer work that ran under
-compute/host work the pipeline was doing anyway. A transfer no consumer
-ever waited on (engine-internal retirement) is fully hidden.
+For one transfer, **exposed** time is the part of its copy its wait
+blocked on: the wait's duration when the wait blocked, but never more
+than the transfer span (a blocked wait also covers what the copy waited
+for: the submitter's work, a free worker, the queue). **Hidden** time is
+the rest of the span — transfer work that ran under compute/host work the
+pipeline was doing anyway. A transfer no consumer ever waited on
+(engine-internal retirement) is fully hidden.
 
 ``hidden_fraction = hidden / (hidden + exposed)`` is the direct
 measurement of the claim: 1.0 means every transferred byte moved behind
 something else; 0.0 means the pipeline is synchronous in disguise.
+
+The transfer engine keeps the same decomposition as counters, taken at
+each first wait from the same two intervals (``TransferStats.hidden_s``/
+``exposed_s``, reported by its ``clock()`` with telemetry on).
 
 The decomposition is broken out per source→destination tier pair and per
 scheduler step (transfers attributed to the ``sched/step`` span their wait
@@ -63,7 +74,8 @@ class _Transfer:
     @property
     def exposed_s(self) -> float:
         if self.hit is False:
-            return max(self.wait_end - self.wait_start, 0.0)
+            return min(max(self.wait_end - self.wait_start, 0.0),
+                       max(self.complete - self.issue, 0.0))
         return 0.0
 
     @property
@@ -166,14 +178,18 @@ class OverlapAnalyzer:
         return out
 
     def validate(self, transfer_stats: Mapping[str, float], *,
-                 tol_s: float = 5e-3) -> List[str]:
+                 tol_s: float = 5e-3,
+                 clock: Optional[Mapping[str, Any]] = None) -> List[str]:
         """Cross-check the trace decomposition against a
         ``TransferStats.snapshot()``: wait counts must match exactly and
-        the trace's exposed time must equal ``blocked_s`` within ``tol_s``
-        (both sides measure the same waits, so this is an instrumentation
-        invariant, not a statistical one). Returns discrepancy messages
-        (empty list = consistent). Skipped counts are tolerated only when
-        the ring dropped events (``orphan_waits``)."""
+        the trace's exposed time must equal the engine's within ``tol_s``
+        — its ``exposed_s`` where its ``clock()`` is given (telemetry on),
+        else ``blocked_s``, the waits' whole time, which it equals where
+        no blocked wait outlasted its transfer (both sides measure the same
+        waits, so this is an instrumentation invariant, not a statistical
+        one). Returns discrepancy messages (empty list = consistent).
+        Skipped counts are tolerated only when the ring dropped events
+        (``orphan_waits``)."""
         r = self.report()
         errors: List[str] = []
         seen_waits = r["waits_overlapped"] + r["waits_blocked"] \
@@ -189,10 +205,13 @@ class OverlapAnalyzer:
             errors.append(f"total waits: trace={seen_waits} "
                           f"stats={stat_waits}")
         if self.orphan_waits == 0:
-            diff = abs(r["exposed_s"] - float(transfer_stats["blocked_s"]))
+            name, stat = (("blocked_s", transfer_stats["blocked_s"])
+                          if clock is None else
+                          ("exposed_s", clock["exposed_s"]))
+            diff = abs(r["exposed_s"] - float(stat))
             if diff > tol_s:
                 errors.append(
-                    f"exposed_s {r['exposed_s']:.6f} vs stats blocked_s "
-                    f"{float(transfer_stats['blocked_s']):.6f} "
+                    f"exposed_s {r['exposed_s']:.6f} vs stats {name} "
+                    f"{float(stat):.6f} "
                     f"(|diff| {diff:.6f} > tol {tol_s})")
         return errors

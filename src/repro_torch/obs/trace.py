@@ -18,7 +18,11 @@ Event kinds mirror the trace-event format:
   the instrumented sites emit these at span *end*, so an event's presence
   implies the work finished;
 - **instant** (``ph="i"``) — a point event (request state transitions,
-  spill cascade hops, prefix lookups).
+  prefix lookups).
+
+An event goes on the lane of the thread that emitted it, unless it names a
+``lane`` of its own: the transfer engine puts the copies it timed on the
+device on one lane named for the copy stream.
 
 `NullTracer` is the disabled implementation: every method is a no-op and
 ``enabled`` is False so hot paths can skip building args dicts entirely —
@@ -33,19 +37,20 @@ import threading
 import time
 from collections import deque
 from contextlib import contextmanager
-from typing import Any, Dict, Iterator, List, Optional
+from typing import Any, Dict, Iterator, List, Optional, Union
 
 __all__ = ["TraceEvent", "Tracer", "NullTracer", "NULL_TRACER"]
 
 
 class TraceEvent:
     """One trace event. ``ts``/``dur`` are raw ``time.perf_counter``
-    seconds; the exporter rebases them to microseconds."""
+    seconds; the exporter rebases them to microseconds. ``tid`` is the
+    emitting thread's ident, or the name of the lane the event was put on."""
 
     __slots__ = ("cat", "name", "ph", "ts", "dur", "tid", "args")
 
     def __init__(self, cat: str, name: str, ph: str, ts: float,
-                 dur: float = 0.0, tid: int = 0,
+                 dur: float = 0.0, tid: Union[int, str] = 0,
                  args: Optional[Dict[str, Any]] = None) -> None:
         self.cat = cat
         self.name = name
@@ -85,10 +90,13 @@ class Tracer:
         return time.perf_counter()
 
     def complete(self, cat: str, name: str, ts: float, dur: float,
-                 args: Optional[Dict[str, Any]] = None) -> None:
-        """A span that ran [ts, ts+dur] (emitted at span end)."""
+                 args: Optional[Dict[str, Any]] = None,
+                 lane: Optional[str] = None) -> None:
+        """A span that ran [ts, ts+dur] (emitted at span end), on the
+        calling thread's lane or on the named ``lane``."""
         self._push(TraceEvent(cat, name, "X", ts, max(dur, 0.0),
-                              threading.get_ident(), args))
+                              threading.get_ident() if lane is None else lane,
+                              args))
 
     def instant(self, cat: str, name: str,
                 args: Optional[Dict[str, Any]] = None,
@@ -132,8 +140,9 @@ class Tracer:
     def to_chrome(self) -> Dict[str, Any]:
         """Chrome trace-event JSON object (the ``traceEvents`` dict form).
         Timestamps are rebased to microseconds since the tracer's epoch;
-        thread idents are remapped to small stable tids, named via ``M``
-        metadata events so Perfetto shows readable lanes."""
+        thread idents and lane names are remapped to small stable tids,
+        named via ``M`` metadata events so Perfetto shows readable lanes (a
+        named lane keeps its name, a thread is ``thread-<tid>``)."""
         events = self.events()
         tids: Dict[int, int] = {}
         out: List[Dict[str, Any]] = [{
@@ -155,8 +164,9 @@ class Tracer:
                 row["args"] = ev.args
             rows.append(row)
         for ident, tid in tids.items():
+            name = ident if isinstance(ident, str) else f"thread-{tid}"
             out.append({"name": "thread_name", "ph": "M", "pid": 1,
-                        "tid": tid, "args": {"name": f"thread-{tid}"}})
+                        "tid": tid, "args": {"name": name}})
         out.extend(rows)
         return {"traceEvents": out, "displayTimeUnit": "ms",
                 "otherData": {"dropped_events": self.dropped}}
@@ -190,7 +200,8 @@ class NullTracer:
     now = staticmethod(time.perf_counter)
 
     def complete(self, cat: str, name: str, ts: float, dur: float,
-                 args: Optional[Dict[str, Any]] = None) -> None:
+                 args: Optional[Dict[str, Any]] = None,
+                 lane: Optional[str] = None) -> None:
         pass
 
     def instant(self, cat: str, name: str,

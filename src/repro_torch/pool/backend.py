@@ -24,6 +24,12 @@ tensors in place, so neither side may alias the stored copy). A backend
 that is handed the entry's previous handle (``reuse``) copies into it when
 shape and type match, so re-putting one key every step allocates — and, on
 the host tier, pins — its buffer once.
+
+A caller that wants a put's or get's copies timed (telemetry on) hands
+it a list (``timings``): on a CUDA device the device and host tiers then
+queue their copies through the transfer engine's ``copy``, which times
+each on the device and appends its timing there. Without a list they copy
+as they always did.
 """
 
 from __future__ import annotations
@@ -42,6 +48,9 @@ REMOTE_TIER = "remote"
 
 #: gives the transfer engine's copy stream for a CUDA device
 StreamFor = Callable[[torch.device], "torch.cuda.Stream"]
+#: queues ``dst <- src`` on the current stream, timed on the device, and
+#: appends its timing to the list (the transfer engine's ``copy``)
+TimedCopy = Callable[[torch.Tensor, torch.Tensor, list], None]
 
 
 def tensor_nbytes(t: torch.Tensor) -> int:
@@ -85,15 +94,19 @@ def _reusable(buf: Optional[torch.Tensor], value: torch.Tensor,
 
 class MemoryBackend:
     """One storage tier: ``put`` stores a tensor into the tier and returns
-    a handle; ``get`` materializes a handle on the pool's device."""
+    a handle; ``get`` materializes a handle on the pool's device. Where a
+    tier can time its copies on the device, it appends their timings to
+    ``timings`` when it is handed a list."""
 
     name: str = "abstract"
     device: torch.device
 
-    def put(self, value: torch.Tensor, reuse: Any = None) -> Any:
+    def put(self, value: torch.Tensor, reuse: Any = None,
+            timings: Optional[list] = None) -> Any:
         raise NotImplementedError
 
-    def get(self, handle: Any) -> torch.Tensor:
+    def get(self, handle: Any, timings: Optional[list] = None
+            ) -> torch.Tensor:
         raise NotImplementedError
 
     def nbytes(self, handle: Any) -> int:
@@ -111,17 +124,26 @@ class MemoryBackend:
 class DeviceBackend(MemoryBackend):
     """The pool's device memory."""
 
-    def __init__(self, device: torch.device) -> None:
+    def __init__(self, device: torch.device,
+                 copy: Optional[TimedCopy] = None) -> None:
         self.device = device
         self.name = f"device[{device.type}]"
+        self._copy = copy
 
-    def put(self, value: torch.Tensor, reuse: Any = None) -> torch.Tensor:
+    def put(self, value: torch.Tensor, reuse: Any = None,
+            timings: Optional[list] = None) -> torch.Tensor:
         if _reusable(reuse, value, self.device):
             return reuse.copy_(value)
         return value.detach().to(self.device, copy=True)
 
-    def get(self, handle: torch.Tensor) -> torch.Tensor:
-        return handle.clone()
+    def get(self, handle: torch.Tensor, timings: Optional[list] = None
+            ) -> torch.Tensor:
+        if timings is None or self._copy is None or \
+                self.device.type != "cuda":
+            return handle.clone()
+        out = torch.empty_like(handle)
+        self._copy(out, handle, timings)
+        return out
 
     def holds(self, handle: Any) -> bool:
         return isinstance(handle, torch.Tensor) and handle.device == self.device
@@ -134,16 +156,19 @@ class HostBackend(MemoryBackend):
     store does; fetches read the pinned buffer asynchronously."""
 
     def __init__(self, device: torch.device,
-                 stream_for: Optional[StreamFor] = None) -> None:
+                 stream_for: Optional[StreamFor] = None,
+                 copy: Optional[TimedCopy] = None) -> None:
         self.device = device
         self.pinned = device.type == "cuda"
         if self.pinned and stream_for is None:
             raise ValueError("a pinned host tier needs the transfer engine's "
                              "copy stream")
         self._stream_for = stream_for
+        self._copy = copy
         self.name = "host[pinned]" if self.pinned else "host[cpu]"
 
-    def put(self, value: torch.Tensor, reuse: Any = None) -> torch.Tensor:
+    def put(self, value: torch.Tensor, reuse: Any = None,
+            timings: Optional[list] = None) -> torch.Tensor:
         cpu = torch.device("cpu")
         if _reusable(reuse, value, cpu):
             buf = reuse
@@ -154,17 +179,26 @@ class HostBackend(MemoryBackend):
             stream = self._stream_for(value.device)
             stream.wait_stream(torch.cuda.current_stream(value.device))
             with torch.cuda.stream(stream):
-                buf.copy_(value, non_blocking=True)
+                if timings is None or self._copy is None:
+                    buf.copy_(value, non_blocking=True)
+                else:
+                    self._copy(buf, value, timings)
             stream.synchronize()
         else:
             buf.copy_(value)
         return buf
 
-    def get(self, handle: torch.Tensor) -> torch.Tensor:
+    def get(self, handle: torch.Tensor, timings: Optional[list] = None
+            ) -> torch.Tensor:
         if self.device.type == "cuda":
             # async from pinned memory, on the caller's current stream (the
             # transfer engine runs prefetches under its copy stream)
-            return handle.to(self.device, non_blocking=True)
+            if timings is None or self._copy is None:
+                return handle.to(self.device, non_blocking=True)
+            out = torch.empty(handle.shape, dtype=handle.dtype,
+                              device=self.device)
+            self._copy(out, handle, timings)
+            return out
         return handle.clone()
 
     def holds(self, handle: Any) -> bool:
@@ -207,7 +241,8 @@ class CpuTensorBackend(MemoryBackend):
         if remaining > 0:
             time.sleep(remaining)
 
-    def put(self, value: torch.Tensor, reuse: Any = None) -> torch.Tensor:
+    def put(self, value: torch.Tensor, reuse: Any = None,
+            timings: Optional[list] = None) -> torch.Tensor:
         t0 = time.perf_counter()
         cpu = torch.device("cpu")
         if _reusable(reuse, value, cpu) and not reuse.is_pinned():
@@ -218,7 +253,8 @@ class CpuTensorBackend(MemoryBackend):
                        self.write_latency_s)
         return handle
 
-    def get(self, handle: torch.Tensor) -> torch.Tensor:
+    def get(self, handle: torch.Tensor, timings: Optional[list] = None
+            ) -> torch.Tensor:
         t0 = time.perf_counter()
         value = handle.to(self.device, copy=True)
         if self.read_bw is not None or self.read_latency_s > 0:
@@ -255,7 +291,8 @@ class CodecBackend(MemoryBackend):
         self.device = inner.device
         self.name = f"{codec.name}[{inner.name}]"
 
-    def put(self, value: Any, reuse: Any = None) -> "codec_mod.EncodedPage":
+    def put(self, value: Any, reuse: Any = None,
+            timings: Optional[list] = None) -> "codec_mod.EncodedPage":
         if isinstance(value, codec_mod.EncodedPage):
             if value.codec != self.codec.name:
                 raise ValueError(
@@ -263,17 +300,20 @@ class CodecBackend(MemoryBackend):
                     f"{self.codec.name!r} tier without decoding first")
             # spill between codec tiers: move the encoded payload only
             return dataclasses.replace(
-                value, payload=self.inner.put(value.payload))
+                value, payload=self.inner.put(value.payload,
+                                              timings=timings))
         payload, scale = self.codec.encode(value)
         prior = reuse.payload if isinstance(
             reuse, codec_mod.EncodedPage) else None
         return codec_mod.EncodedPage(
-            codec=self.codec.name, payload=self.inner.put(payload, prior),
+            codec=self.codec.name,
+            payload=self.inner.put(payload, prior, timings),
             scale=scale, dtype=value.dtype, shape=tuple(value.shape),
             nbytes=self.codec.encoded_nbytes(value.shape))
 
-    def get(self, handle: "codec_mod.EncodedPage") -> torch.Tensor:
-        payload = self.inner.get(handle.payload)
+    def get(self, handle: "codec_mod.EncodedPage",
+            timings: Optional[list] = None) -> torch.Tensor:
+        payload = self.inner.get(handle.payload, timings)
         return self.codec.decode(payload, handle.scale.to(payload.device),
                                  handle.dtype)
 
@@ -291,12 +331,13 @@ class CodecBackend(MemoryBackend):
 
 
 def backend_for(spec, device: torch.device,
-                stream_for: Optional[StreamFor] = None) -> MemoryBackend:
+                stream_for: Optional[StreamFor] = None,
+                copy: Optional[TimedCopy] = None) -> MemoryBackend:
     """Storage backend for one ``TierSpec`` (duck-typed on its fields)."""
     if spec.kind == "device":
-        return DeviceBackend(device)
+        return DeviceBackend(device, copy)
     if spec.kind == "host":
-        return HostBackend(device, stream_for)
+        return HostBackend(device, stream_for, copy)
     if spec.kind == "numpy":
         return CpuTensorBackend(device, name="cpu")
     if spec.kind == "modeled":

@@ -17,7 +17,11 @@ and every standing reservation.
 All traffic is counted (puts/gets/evictions, bytes in/out, per-tier
 occupancy and high-water mark) and surfaced by ``snapshot()``; synchronous
 movement (puts, spills, blocking gets) also lands in the transfer engine's
-per tier-pair table.
+per tier-pair table. With telemetry on, each of those rows also gets its
+copy's time (on the card, between timing events on the copy stream: the
+manager hands the backend a list for the timings), which the engine's
+``clock()`` reports, and each spill is a ``pool/spill`` span inside the
+``pool/put`` that caused it.
 
 A tier below a codec boundary (``default_pool(codec=...)``) stores encoded
 pages: every byte counter, tier occupancy and the per tier-pair table see
@@ -190,11 +194,14 @@ class MemoryPoolManager:
                     self._tier(old.tier).used += old.nbytes
                 raise
             reuse = old.handle if old is not None and old.tier == tier else None
+            timings = [] if self.tracer.enabled else None
             t_x = time.perf_counter()
-            handle = st.backend.put(value, reuse=reuse)
+            handle = st.backend.put(value, reuse=reuse, timings=timings)
+            busy = time.perf_counter() - t_x
             if not isinstance(st.backend, B.DeviceBackend):
-                self.transfer.record_pair(B.DEVICE_TIER, tier, nbytes,
-                                          time.perf_counter() - t_x)
+                self.transfer.record_pair(
+                    B.DEVICE_TIER, tier, nbytes, busy,
+                    self.transfer.copy_seconds(timings, busy))
             self._clock += 1
             entry = PoolEntry(key=key, tier=tier, handle=handle,
                               nbytes=nbytes, priority=priority,
@@ -206,8 +213,7 @@ class MemoryPoolManager:
             self.stats.bytes_stored += nbytes
             if self.tracer.enabled:
                 self.tracer.complete("pool", "put", t0, self.tracer.now() - t0,
-                                     {"key": key, "tier": tier,
-                                      "nbytes": nbytes})
+                                     {"tier": tier, "nbytes": nbytes})
             return entry
 
     # -- fetching ------------------------------------------------------
@@ -224,13 +230,16 @@ class MemoryPoolManager:
             backend, handle = self._tier(entry.tier).backend, entry.handle
         t_x = time.perf_counter()
         value = backend.get(handle)
+        busy = time.perf_counter() - t_x
         if not isinstance(backend, B.DeviceBackend):
+            # the copy is still in flight on the caller's stream, so it is
+            # not timed there: with telemetry on its host seconds are filed
             self.transfer.record_pair(entry.tier, B.DEVICE_TIER, entry.nbytes,
-                                      time.perf_counter() - t_x)
+                                      busy, busy if self.tracer.enabled
+                                      else None)
         if self.tracer.enabled:
             self.tracer.complete("pool", "fetch", t0, self.tracer.now() - t0,
-                                 {"key": key, "tier": entry.tier,
-                                  "nbytes": entry.nbytes})
+                                 {"tier": entry.tier, "nbytes": entry.nbytes})
         return value
 
     def prefetch(self, key: str) -> TransferHandle:
@@ -251,9 +260,11 @@ class MemoryPoolManager:
             self.stats.gets += 1
             self.stats.bytes_fetched += nbytes
 
-        h = self.transfer.submit(lambda: backend.get(handle), key=key,
-                                 src=src, dst=B.DEVICE_TIER, nbytes=nbytes,
-                                 device=self.device)
+        timings = [] if self.tracer.enabled else None
+        h = self.transfer.submit(lambda: backend.get(handle, timings),
+                                 key=key, src=src, dst=B.DEVICE_TIER,
+                                 nbytes=nbytes, device=self.device,
+                                 timings=timings)
         with self._lock:
             entry.pending = [p for p in entry.pending
                              if not p._future.done()] + [h]
@@ -460,7 +471,9 @@ class MemoryPoolManager:
         return min(candidates, key=lambda e: (e.priority, e.last_use))
 
     def _evict(self, entry: PoolEntry) -> None:
-        """Spill one entry to the next tier down (or fail at the bottom)."""
+        """Spill one entry to the next tier down (or fail at the bottom).
+        Its ``pool/spill`` span starts once the tier below has room, so
+        the spans of one cascade do not nest and sum to its time."""
         dst = self._next_tier(entry.tier)
         if dst is None:
             raise PoolCapacityError(
@@ -470,10 +483,12 @@ class MemoryPoolManager:
         # two codec tiers moves the payload as it is
         new_nbytes = int(dst_st.backend.wire_nbytes(entry.handle))
         self._make_room(dst_st, new_nbytes)
+        timings = [] if self.tracer.enabled else None
         t_x = time.perf_counter()
-        entry.handle = dst_st.backend.put(entry.handle)
-        self.transfer.record_pair(src_st.name, dst, new_nbytes,
-                                  time.perf_counter() - t_x)
+        entry.handle = dst_st.backend.put(entry.handle, timings=timings)
+        busy = time.perf_counter() - t_x
+        self.transfer.record_pair(src_st.name, dst, new_nbytes, busy,
+                                  self.transfer.copy_seconds(timings, busy))
         src_st.used -= entry.nbytes
         dst_st.used += new_nbytes
         dst_st.peak = max(dst_st.peak, dst_st.used)
@@ -481,12 +496,13 @@ class MemoryPoolManager:
         entry.nbytes = new_nbytes
         self.stats.evictions += 1
         self.stats.bytes_evicted += new_nbytes
-        if self.tracer.enabled:
-            self.tracer.instant("pool", "spill",
-                                {"key": entry.key, "src": src_st.name,
-                                 "dst": dst, "nbytes": new_nbytes})
         for cb in self._evict_listeners:
             cb(entry, dst)
+        if self.tracer.enabled:
+            self.tracer.complete("pool", "spill", t_x,
+                                 time.perf_counter() - t_x,
+                                 {"src": src_st.name, "dst": dst,
+                                  "nbytes": new_nbytes})
 
 
 # ---------------------------------------------------------------------------
@@ -538,7 +554,7 @@ def default_pool(host_capacity: Optional[int] = None,
     tiers = []
     below = False
     for s in topology.tiers:
-        b = B.backend_for(s, dev, transfer.copy_stream)
+        b = B.backend_for(s, dev, transfer.copy_stream, transfer.copy)
         if codec_obj is not None:
             below = below or s.name == boundary
             if below:

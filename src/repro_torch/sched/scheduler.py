@@ -67,6 +67,7 @@ from __future__ import annotations
 
 import dataclasses
 import itertools
+import time
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -147,6 +148,16 @@ class SchedStats:
     shed: int = 0                 # requests dropped as deadline-infeasible
 
 
+@dataclasses.dataclass
+class SchedClock:
+    """The scheduler's readings of the host clock (``time.perf_counter``),
+    beside the virtual steps of ``SchedStats``: requests admitted to a
+    slot, and the seconds they waited for it from ``submit()``."""
+
+    admissions: int = 0
+    queue_wait_s: float = 0.0
+
+
 class ContinuousScheduler:
     def __init__(self, model: Model, params: Any,
                  cfg: SchedulerConfig = SchedulerConfig(), *,
@@ -168,6 +179,9 @@ class ContinuousScheduler:
         self.device = device_of(params)
         self._ns = f"sched{next(_SCHED_IDS)}"
         self.stats = SchedStats()
+        self.clock = SchedClock()
+        #: req_id -> host time of submit(), until the request takes a slot
+        self._t_submit: Dict[int, float] = {}
         self.finished: Dict[int, RequestState] = {}
         self._tracer = tracer if tracer is not None else NULL_TRACER
         # per-request latency histograms (virtual scheduler steps)
@@ -295,7 +309,9 @@ class ContinuousScheduler:
                                  {"req": request.req_id,
                                   "prompt_len": request.prompt_len,
                                   "arrival": request.arrival})
-        return self.queue.push(request)
+        state = self.queue.push(request)
+        self._t_submit[request.req_id] = time.perf_counter()
+        return state
 
     @property
     def active(self) -> List[RequestState]:
@@ -480,6 +496,7 @@ class ContinuousScheduler:
         """Terminal drop from the queue: never admitted, so there is no
         slot, reservation, or page to release."""
         self.queue.remove(state)
+        self._t_submit.pop(state.req_id, None)
         state.status = SHED
         state.t_done = self.now
         self.finished[state.req_id] = state
@@ -802,6 +819,10 @@ class ContinuousScheduler:
         self.slots[slot] = state
         state.joined_step = self.stats.steps
         state.t_joined = self.now
+        t_submit = self._t_submit.pop(state.req_id, None)
+        if t_submit is not None:
+            self.clock.admissions += 1
+            self.clock.queue_wait_s += time.perf_counter() - t_submit
         if self.cfg.kv_offload:   # resident mode never parks a page
             state.pages = KVPageTable(
                 self.pool, f"{self._ns}/req{state.req_id}")

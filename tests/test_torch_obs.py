@@ -353,7 +353,8 @@ def test_session_telemetry_end_to_end(model_and_params, tmp_path):
                 assert s.overlap() is None
                 continue
             assert OverlapAnalyzer.from_tracer(s.tracer).validate(
-                s.pool.snapshot()["transfer"]) == []
+                s.pool.snapshot()["transfer"],
+                clock=s.transfer.clock()) == []
             rep = s.overlap()
             assert rep["transfers"] > 0 and rep["hidden_fraction"] is not None
             # kv_offload parks pages on the device tier (no spill here)
