@@ -1663,8 +1663,10 @@ def sched_run(torch, dev, kernels, model, params, trace, mode, kw, n_attn,
 
         def probed_park():
             park()
+            inflight = sched._inflight.by_layer if sched._inflight else ()
             if "call" not in probe and any(
-                    pool.tier_of(k) != pool.top_tier for k in sched._fetch_map):
+                    pool.tier_of(k) != pool.top_tier
+                    for _, keys, _ in inflight for k in keys):
                 probe["call"] = calls["decode"]   # the next decode reads it
 
         def probed_decode(*args):

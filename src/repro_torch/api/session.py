@@ -183,7 +183,8 @@ class HyperOffloadSession:
                 "sched_clock",
                 collector(HyperOffloadSession._collect_sched_clock))
             reg.register_collector(
-                "transfer_clock", collector(lambda s: s.transfer.clock()))
+                "transfer_clock",
+                collector(HyperOffloadSession._collect_transfer_clock))
 
     def _collect_serve(self) -> Dict[str, Any]:
         serve = {"engines": len(self._engines), "prefill_tokens": 0,
@@ -235,6 +236,12 @@ class HyperOffloadSession:
         for s in self._schedulers:
             out["admissions"] += s.clock.admissions
             out["queue_wait_s"] += s.clock.queue_wait_s
+        return out
+
+    def _collect_transfer_clock(self) -> Dict[str, Any]:
+        out = self.transfer.clock()
+        out["fetch_jobs"] = self.pool.fetch_jobs
+        out["fetch_job_pages"] = self.pool.fetch_job_pages
         return out
 
     def _collect_paged(self) -> Dict[str, Any]:
@@ -453,7 +460,9 @@ class HyperOffloadSession:
         so its counters have one shape whether telemetry is on or off — with
         telemetry on, two more collectors carry clock readings
         (``"sched_clock"``: admissions and their host seconds from submit to
-        slot; ``"transfer_clock"``: the transfer engine's ``clock()``), and
+        slot; ``"transfer_clock"``: the transfer engine's ``clock()``, and
+        the pool's ``fetch_jobs`` and the ``fetch_job_pages`` they
+        carried), and
         one extra ``"telemetry"`` key carries the latency histograms and the
         trace-ring state."""
         out = self.registry.collect()

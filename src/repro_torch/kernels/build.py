@@ -53,7 +53,7 @@ _SIGNATURES = {
     "ssd_scan_fwd": ([_P] * 6 + [_I] * 7 + [_LL] * 12 + [_P], _I),
     "ssd_scan_smem_bytes": ([_I] * 6, ctypes.c_size_t),
     "hyperoffload_cuda_error_string": ([_I], ctypes.c_char_p),
-    "hyperoffload_timed_copy": ([_P, _P, ctypes.c_size_t, _P, _P, _P], _I),
+    "hyperoffload_timed_copies": ([_P, _P, _P, _I, _P, _P, _P], _I),
     "hyperoffload_copy_times": ([_P, _P, _P, ctypes.POINTER(_F)], _I),
 }
 

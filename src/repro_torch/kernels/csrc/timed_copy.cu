@@ -1,17 +1,20 @@
-// Host code of the transfer engine's copy clock (pool/transfer.py): a copy
-// queued between two timing events in one call, so that no other thread of
-// the caller's process can put anything between them on the stream, and the
-// device meets the events right before and right after the copy.
+// Host code of the transfer engine's copy clock (pool/transfer.py): copies
+// queued back to back between two timing events in one call, so that no
+// other thread of the caller's process can put anything between them on the
+// stream, and the device meets the events right before the first copy and
+// right after the last.
 
 #include <cuda_runtime.h>
 
-extern "C" int hyperoffload_timed_copy(void* dst, const void* src,
-                                       size_t nbytes, void* begin, void* end,
-                                       void* stream) {
+extern "C" int hyperoffload_timed_copies(void* const* dst,
+                                         const void* const* src,
+                                         const size_t* nbytes, int n,
+                                         void* begin, void* end,
+                                         void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaEventRecord(static_cast<cudaEvent_t>(begin), s);
-  if (err == cudaSuccess)
-    err = cudaMemcpyAsync(dst, src, nbytes, cudaMemcpyDefault, s);
+  for (int i = 0; err == cudaSuccess && i < n; ++i)
+    err = cudaMemcpyAsync(dst[i], src[i], nbytes[i], cudaMemcpyDefault, s);
   if (err == cudaSuccess)
     err = cudaEventRecord(static_cast<cudaEvent_t>(end), s);
   return static_cast<int>(err);

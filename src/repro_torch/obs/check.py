@@ -96,7 +96,12 @@ def validate_events(obj: Any) -> List[str]:
                 rec = {"ts": float(ts), "end": float(ts) + float(dur),
                        "where": where}
                 if ev["name"] == TRANSFER_SPAN:
-                    transfers[int(args["seq"])] = rec
+                    # a job that reads several tiers has a span per tier:
+                    # it completes with the last
+                    seq = int(args["seq"])
+                    if seq not in transfers or \
+                            transfers[seq]["end"] < rec["end"]:
+                        transfers[seq] = rec
                 else:
                     rec["hit"] = bool(args.get("hit"))
                     waits[int(args["seq"])] = rec

@@ -15,7 +15,9 @@ often a consumer found its transfer done; this analyzer reconstructs the
   (``pool.transfer.CopyClock``), so neither the copy stream's wait for the
   submitter's compute nor the worker thread's wait for its event counts as
   transfer time; on the CPU it is the host interval of the transfer's
-  thunk;
+  thunk. A job that reads several tiers emits one span per tier, all with
+  its ``seq`` and each with its ``pages``: its copy time is theirs summed,
+  and it counts as their pages' transfers;
 - every first consumer wait emits a ``transfer.wait`` span (wait start →
   wait end) with ``hit`` = the transfer was already done.
 
@@ -65,32 +67,33 @@ class _Transfer:
     seq: int
     issue: float
     complete: float
-    src: Optional[str] = None
-    dst: Optional[str] = None
+    #: by tier pair (one span per tier a job reads): [seconds, pages]
+    parts: Dict[str, List[float]] = field(default_factory=dict)
     wait_start: Optional[float] = None
     wait_end: Optional[float] = None
     hit: Optional[bool] = None    # wait found it done (None = never waited)
 
     @property
+    def copy_s(self) -> float:
+        return sum(seconds for seconds, _ in self.parts.values())
+
+    @property
     def exposed_s(self) -> float:
         if self.hit is False:
             return min(max(self.wait_end - self.wait_start, 0.0),
-                       max(self.complete - self.issue, 0.0))
+                       self.copy_s)
         return 0.0
 
     @property
     def hidden_s(self) -> float:
-        return max((self.complete - self.issue) - self.exposed_s, 0.0)
-
-    @property
-    def tier_pair(self) -> str:
-        return f"{self.src or '?'}->{self.dst or '?'}"
+        return max(self.copy_s - self.exposed_s, 0.0)
 
 
-def _bucket(into: Dict[str, Any], t: _Transfer) -> None:
-    into["transfers"] += 1
-    into["hidden_s"] += t.hidden_s
-    into["exposed_s"] += t.exposed_s
+def _bucket(into: Dict[str, Any], t: _Transfer, pages: int,
+            share: float = 1.0) -> None:
+    into["transfers"] += pages
+    into["hidden_s"] += share * t.hidden_s
+    into["exposed_s"] += share * t.exposed_s
     if t.hit is True:
         into["waits_overlapped"] += 1
     elif t.hit is False:
@@ -119,9 +122,15 @@ class OverlapAnalyzer:
         for ev in events:
             if ev.cat == TRANSFER_CAT and ev.name == TRANSFER_SPAN:
                 seq = int(ev.args["seq"])
-                self.transfers[seq] = _Transfer(
-                    seq=seq, issue=ev.ts, complete=ev.end,
-                    src=ev.args.get("src"), dst=ev.args.get("dst"))
+                t = self.transfers.setdefault(
+                    seq, _Transfer(seq=seq, issue=ev.ts, complete=ev.end))
+                t.issue, t.complete = min(t.issue, ev.ts), \
+                    max(t.complete, ev.end)
+                pair = (f"{ev.args.get('src') or '?'}->"
+                        f"{ev.args.get('dst') or '?'}")
+                part = t.parts.setdefault(pair, [0.0, 0])
+                part[0] += max(ev.end - ev.ts, 0.0)
+                part[1] += int(ev.args.get("pages", 1))
             elif ev.cat == TRANSFER_CAT and ev.name == WAIT_SPAN:
                 waits.append((int(ev.args["seq"]), ev.ts, ev.end,
                               bool(ev.args.get("hit"))))
@@ -162,12 +171,17 @@ class OverlapAnalyzer:
         by_step: Dict[int, Dict[str, Any]] = {}
         inflight_s = 0.0
         for t in self.transfers.values():
-            _bucket(total, t)
-            inflight_s += max(t.complete - t.issue, 0.0)
-            _bucket(by_tier.setdefault(t.tier_pair, _new_bucket()), t)
+            pages = sum(n for _, n in t.parts.values())
+            _bucket(total, t, pages)
+            inflight_s += t.copy_s
+            for pair, (seconds, n) in t.parts.items():
+                # a job's hidden and exposed time split by its tiers' copies
+                share = seconds / t.copy_s if t.copy_s > 0 \
+                    else 1.0 / len(t.parts)
+                _bucket(by_tier.setdefault(pair, _new_bucket()), t, n, share)
             step = self._step_of(t)
             if step is not None:
-                _bucket(by_step.setdefault(step, _new_bucket()), t)
+                _bucket(by_step.setdefault(step, _new_bucket()), t, pages)
         out = _finish_bucket(total)
         out["inflight_s"] = inflight_s
         out["orphan_waits"] = self.orphan_waits

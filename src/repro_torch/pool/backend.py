@@ -25,11 +25,18 @@ that is handed the entry's previous handle (``reuse``) copies into it when
 shape and type match, so re-putting one key every step allocates — and, on
 the host tier, pins — its buffer once.
 
+A fetch that is one plain copy of the stored tensor (the device and host
+tiers) names that tensor (``source``), so the pool can copy it straight
+into a destination the caller owns; a tier that decodes or throttles
+(``CodecBackend``, ``CpuTensorBackend``) names none and is read with
+``get``.
+
 A caller that wants a put's or get's copies timed (telemetry on) hands
-it a list (``timings``): on a CUDA device the device and host tiers then
-queue their copies through the transfer engine's ``copy``, which times
-each on the device and appends its timing there. Without a list they copy
-as they always did.
+it a list (``timings``): on a CUDA device the host tier then queues its
+copies through the transfer engine's ``copy``, which times each on the
+device and appends its timing there (a fetch job times the copies of the
+tensors ``source`` names itself). Without a list they copy as they always
+did.
 """
 
 from __future__ import annotations
@@ -109,6 +116,11 @@ class MemoryBackend:
             ) -> torch.Tensor:
         raise NotImplementedError
 
+    def source(self, handle: Any) -> Optional[torch.Tensor]:
+        """The tensor a fetch of ``handle`` copies as it is, or None where
+        the tier must decode or throttle it (``get`` does)."""
+        return None
+
     def nbytes(self, handle: Any) -> int:
         return tensor_nbytes(handle)
 
@@ -124,11 +136,9 @@ class MemoryBackend:
 class DeviceBackend(MemoryBackend):
     """The pool's device memory."""
 
-    def __init__(self, device: torch.device,
-                 copy: Optional[TimedCopy] = None) -> None:
+    def __init__(self, device: torch.device) -> None:
         self.device = device
         self.name = f"device[{device.type}]"
-        self._copy = copy
 
     def put(self, value: torch.Tensor, reuse: Any = None,
             timings: Optional[list] = None) -> torch.Tensor:
@@ -138,12 +148,10 @@ class DeviceBackend(MemoryBackend):
 
     def get(self, handle: torch.Tensor, timings: Optional[list] = None
             ) -> torch.Tensor:
-        if timings is None or self._copy is None or \
-                self.device.type != "cuda":
-            return handle.clone()
-        out = torch.empty_like(handle)
-        self._copy(out, handle, timings)
-        return out
+        return handle.clone()
+
+    def source(self, handle: torch.Tensor) -> torch.Tensor:
+        return handle
 
     def holds(self, handle: Any) -> bool:
         return isinstance(handle, torch.Tensor) and handle.device == self.device
@@ -200,6 +208,9 @@ class HostBackend(MemoryBackend):
             self._copy(out, handle, timings)
             return out
         return handle.clone()
+
+    def source(self, handle: torch.Tensor) -> torch.Tensor:
+        return handle
 
     def holds(self, handle: Any) -> bool:
         return (isinstance(handle, torch.Tensor) and handle.device.type == "cpu"
@@ -335,7 +346,7 @@ def backend_for(spec, device: torch.device,
                 copy: Optional[TimedCopy] = None) -> MemoryBackend:
     """Storage backend for one ``TierSpec`` (duck-typed on its fields)."""
     if spec.kind == "device":
-        return DeviceBackend(device, copy)
+        return DeviceBackend(device)
     if spec.kind == "host":
         return HostBackend(device, stream_for, copy)
     if spec.kind == "numpy":

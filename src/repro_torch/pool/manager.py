@@ -28,6 +28,12 @@ pages: every byte counter, tier occupancy and the per tier-pair table see
 the encoded (on-wire) size, and admission counts such a tier at its
 decoded-equivalent capacity (``tier_scale``).
 
+Fetches are transfer jobs (``prefetch_many``): one job carries many pages
+on one worker, each page copied by its tier straight into a destination
+the caller owns (or into a new tensor), with one event per source tier and
+one wait; it counts one transfer per page. ``prefetch`` is a job of one
+page.
+
 Re-putting a key whose entry sits in the same tier copies into the entry's
 existing buffer when shape and type match — the serving engine re-puts the
 same cache leaves every decode step, and pinning a fresh host buffer each
@@ -36,6 +42,7 @@ time would dominate the step.
 
 from __future__ import annotations
 
+import functools
 import math
 import threading
 import time
@@ -49,7 +56,7 @@ from repro_torch.obs.trace import NULL_TRACER
 from repro_torch.pool import backend as B
 from repro_torch.pool import codec as codec_mod
 from repro_torch.pool.topology import TierTopology
-from repro_torch.pool.transfer import TransferEngine, TransferHandle
+from repro_torch.pool.transfer import CopyGroup, TransferEngine, TransferHandle
 
 
 class PoolCapacityError(RuntimeError):
@@ -124,6 +131,10 @@ class MemoryPoolManager:
         self._reservations: Dict[
             str, Tuple[int, Tuple[str, ...], Optional[str]]] = {}
         self._evict_listeners: List[Callable[[PoolEntry, str], None]] = []
+        #: jobs submitted through ``prefetch_many``, and the pages they
+        #: carried (the session's ``transfer_clock`` reports both)
+        self.fetch_jobs = 0
+        self.fetch_job_pages = 0
 
     def set_tracer(self, tracer) -> None:
         """Attach or replace the tracer on the pool and its transfer engine
@@ -251,23 +262,78 @@ class MemoryPoolManager:
         let an eviction racing it change ``bytes_fetched`` (the entry's
         bytes after the spill) and the LRU clock (which victim the next
         eviction picks)."""
-        with self._lock:
-            entry = self.entries[key]   # fail fast on unknown keys
-            backend, handle = self._tier(entry.tier).backend, entry.handle
-            src, nbytes = entry.tier, entry.nbytes
-            self._clock += 1
-            entry.last_use = self._clock
-            self.stats.gets += 1
-            self.stats.bytes_fetched += nbytes
+        return self._fetch([key], None, lambda outs: outs[0])
 
-        timings = [] if self.tracer.enabled else None
-        h = self.transfer.submit(lambda: backend.get(handle, timings),
-                                 key=key, src=src, dst=B.DEVICE_TIER,
-                                 nbytes=nbytes, device=self.device,
-                                 timings=timings)
+    def prefetch_many(self, keys: Sequence[str],
+                      dests: Optional[Sequence[torch.Tensor]] = None
+                      ) -> TransferHandle:
+        """Issue the device fetches of ``keys`` as one transfer job,
+        counted key by key as ``prefetch`` counts one. With ``dests`` (one
+        tensor per key, on the pool's device, of its page's shape and type)
+        each page is copied straight into its destination and ``wait()``
+        returns None; without, ``wait()`` returns the pages as new tensors
+        in the order of ``keys``. Either way ``wait()`` orders the caller's
+        current stream after every copy of the job."""
+        if dests is not None and len(dests) != len(keys):
+            raise ValueError(f"{len(keys)} keys but {len(dests)} dests")
+        h = self._fetch(keys, dests,
+                        lambda outs: outs if dests is None else None)
         with self._lock:
-            entry.pending = [p for p in entry.pending
-                             if not p._future.done()] + [h]
+            self.fetch_jobs += 1
+            self.fetch_job_pages += len(keys)
+        return h
+
+    def _fetch(self, keys: Sequence[str],
+               dests: Optional[Sequence[torch.Tensor]],
+               result: Callable[[List[Any]], Any]) -> TransferHandle:
+        """Count the fetches of ``keys`` in order, then submit one job that
+        copies their pages, grouped by the tier they read, host tiers
+        before the device tier (one timing bracket each with telemetry on).
+        A tier that names the tensor it holds (``source``) is copied
+        straight into the page's destination; any other is read with
+        ``get`` and copied there. ``result(outs)`` gives the handle's
+        value, ``outs`` the pages fetched into new tensors."""
+        with self._lock:
+            entries = [self.entries[k] for k in keys]  # fail fast on unknowns
+            by_tier: Dict[str, List[Tuple[int, Any, int]]] = {}
+            for i, entry in enumerate(entries):
+                self._clock += 1
+                entry.last_use = self._clock
+                self.stats.gets += 1
+                self.stats.bytes_fetched += entry.nbytes
+                by_tier.setdefault(entry.tier, []).append(
+                    (i, entry.handle, entry.nbytes))
+            backends = {t: self._tier(t).backend for t in by_tier}
+        outs: List[Any] = [None] * len(keys)
+        device, copy_many = self.device, self.transfer.copy_many
+
+        def queue(backend: B.MemoryBackend, pages, timings) -> None:
+            pairs = []
+            for i, handle, _ in pages:
+                src = backend.source(handle)
+                if src is None:
+                    value = backend.get(handle, timings)
+                    if dests is None:
+                        outs[i] = value
+                    else:
+                        dests[i].copy_(value, non_blocking=True)
+                    continue
+                if dests is None:
+                    outs[i] = torch.empty_like(src, device=device)
+                pairs.append((outs[i] if dests is None else dests[i], src))
+            copy_many(pairs, timings)
+
+        tiers = sorted(by_tier, key=lambda t: isinstance(backends[t],
+                                                         B.DeviceBackend))
+        h = self.transfer.submit_job(
+            [CopyGroup(functools.partial(queue, backends[t], by_tier[t]),
+                       len(by_tier[t]), t, B.DEVICE_TIER,
+                       sum(n for _, _, n in by_tier[t])) for t in tiers],
+            lambda: result(outs), keys[0] if keys else None, device=device)
+        with self._lock:
+            for entry in entries:
+                entry.pending = [p for p in entry.pending
+                                 if not p._future.done()] + [h]
         return h
 
     # -- bookkeeping ---------------------------------------------------

@@ -5,36 +5,50 @@ threads ahead of use and the consumer waits on a ``TransferHandle``.
 ``depth`` bounds in-flight transfers; submitting past the bound first
 retires the oldest outstanding transfer (backpressure).
 
-On a CUDA device each transfer runs under the engine's copy stream for that
-device, after the work the submitter's stream had enqueued when it called
-``submit`` (an event recorded there), and records an event of its own. The worker thread waits for that event, so
-a transfer counts as complete only once its bytes have landed; ``wait()``
-then makes the consumer's stream wait on the event and ``record_stream``s
-the result, so the caching allocator never reuses its memory early.
+A handle is one job on one worker: a thunk (``submit``), or the copies of
+many pages (``submit_job``), grouped by the tier they read (``CopyGroup``).
+A job of *n* pages counts as *n* transfers everywhere a transfer is
+counted: ``issued``, ``completed``, the per tier-pair table, and the places
+it holds against ``depth`` (a job larger than ``depth`` waits for an empty
+pipeline).
+
+On a CUDA device each job runs under the engine's copy stream for that
+device, after the work the submitter's stream had enqueued when it
+submitted (an event recorded there), and records an event after each of
+its groups. The worker thread waits for those events, so a job counts as
+complete only once its bytes have landed; ``wait()`` then makes the
+consumer's stream wait on the last event and ``record_stream``s the
+tensors the job returns, so the caching allocator never reuses their
+memory early.
 
 Stats distinguish waits that found the transfer already complete (hidden
 under compute) from waits that blocked (exposed transfer time), and keep a
-per tier-pair ``{transfers, bytes, busy_s}`` table.
+per tier-pair ``{transfers, bytes, busy_s}`` table: a group's ``busy_s`` is
+the host time from the landing of the job's previous group (or the job's
+start) to the landing of its own.
 
 With telemetry on (an enabled tracer), the engine also times each copy
 where it runs. A caller that wants its copies timed hands the backends a
 list (``timings``); on a CUDA device they then queue their copies through
-the engine's ``copy``, which puts each copy between two timing events on
-its stream (``CopyClock``: queued back to back in one call, so neither the
-wait for the submitter's work nor a stream left idle while a thread waited
-for the interpreter lock counts as copy time) and appends its timing to
-the list. The engine maps the events onto the tracer's ``perf_counter``
-clock. Where nothing was timed on the device (the CPU, a copy in flight)
-a transfer's copy is the host interval of its thunk. The ``transfer``
-span then covers the copy (a device-timed one on one lane named for the
-copy stream), each pair row gains the copies' ``device_s``, and each
-transfer's first ``wait()`` splits the copy's time into the part it found
-hidden and the part it was exposed to; ``clock()`` reports both. With
-telemetry off no list is handed over and no timing event is recorded.
+the engine's ``copy`` (a job's group, through ``copy_many``), which puts
+them between two timing events on its stream (``CopyClock``: queued back
+to back in one call, so neither the wait for the submitter's work nor a
+stream left idle while a thread waited for the interpreter lock counts as
+copy time) and appends their timing to the list: one bracket per job and
+source tier. The engine maps the events onto the tracer's
+``perf_counter`` clock. Where nothing was timed on the device (the CPU, a
+copy in flight) a group's copy is its host interval (``busy_s``). Each
+group's ``transfer`` span then covers its copies (a device-timed one on one
+lane named for the copy stream), each pair row gains the copies'
+``device_s``, and each job's first ``wait()`` splits its copies' time into
+the part it found hidden and the part it was exposed to; ``clock()``
+reports both. With telemetry off no list is handed over and no timing
+event is recorded.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import threading
 import time
@@ -42,7 +56,7 @@ from collections import deque
 from concurrent.futures import Future, ThreadPoolExecutor
 from dataclasses import dataclass, field
 from typing import (
-    Any, Callable, Deque, Dict, List, NamedTuple, Optional, Tuple,
+    Any, Callable, Deque, Dict, List, NamedTuple, Optional, Sequence, Tuple,
 )
 
 import torch
@@ -98,10 +112,11 @@ class TransferStats:
     exposed_s: float = 0.0
 
     def record_pair(self, src: str, dst: str, nbytes: int, seconds: float,
-                    device_s: Optional[float] = None) -> None:
+                    device_s: Optional[float] = None,
+                    transfers: int = 1) -> None:
         b = self.pairs.setdefault(f"{src}->{dst}",
                                   {"transfers": 0, "bytes": 0, "busy_s": 0.0})
-        b["transfers"] += 1
+        b["transfers"] += int(transfers)
         b["bytes"] += int(nbytes)
         b["busy_s"] += float(seconds)
         if device_s is not None:
@@ -128,14 +143,41 @@ class TransferStats:
         }
 
 
-class TransferHandle:
-    """One in-flight transfer. ``wait()`` returns its value (idempotent)."""
+@dataclass
+class CopyGroup:
+    """The copies of one job that read one tier: ``queue(timings)`` queues
+    them on the current stream (telemetry on: ``timings`` is a list their
+    device timings go to, ``copy_many``), and ``pages`` transfers of
+    ``nbytes`` in all are filed under ``src->dst`` (nothing is filed
+    without ``src``, ``dst`` and ``nbytes``)."""
 
-    def __init__(self, key: Optional[str], seq: int, future: "Future",
+    queue: Callable[[Optional[List["CopyTiming"]]], None]
+    pages: int = 1
+    src: Optional[str] = None
+    dst: Optional[str] = None
+    nbytes: Optional[int] = None
+
+
+def _tensors(value: Any) -> List[torch.Tensor]:
+    """The tensors a job returned: the value itself, or those in a list."""
+    if isinstance(value, torch.Tensor):
+        return [value]
+    if isinstance(value, (list, tuple)):
+        return [v for v in value if isinstance(v, torch.Tensor)]
+    return []
+
+
+class TransferHandle:
+    """One in-flight job. ``wait()`` returns its value (idempotent)."""
+
+    def __init__(self, key: Optional[str], seq: int, places: int,
+                 device: Optional[torch.device],
                  engine: "TransferEngine") -> None:
         self.key = key
         self.seq = seq          # issue order
-        self._future = future
+        self.places = places    # transfers it counts (its pages)
+        self.device = device
+        self._future: "Future" = None   # set once the job is queued
         self._engine = engine
         self._waited = False
 
@@ -156,9 +198,10 @@ class TransferHandle:
         t0 = time.perf_counter()
         value, event, copy_s = self._future.result()
         if event is not None:
-            consumer = torch.cuda.current_stream(value.device)
+            consumer = torch.cuda.current_stream(self.device)
             consumer.wait_event(event)
-            value.record_stream(consumer)
+            for t in _tensors(value):
+                t.record_stream(consumer)
         if not self._waited:
             self._waited = True
             dur = time.perf_counter() - t0
@@ -179,10 +222,10 @@ _Event = Tuple["torch.cuda.Event", int]
 
 
 class CopyTiming(NamedTuple):
-    """One copy timed on a CUDA device: the clock that timed it, its anchor
-    when the copy was queued (host time, event), the timing events right
-    before and after the copy, and the copy engine's latency in its
-    direction (seconds)."""
+    """Copies timed together on a CUDA device: the clock that timed them,
+    its anchor when they were queued (host time, event), the timing events
+    right before the first and after the last, and the copy engine's
+    latency in the bracket (seconds)."""
 
     clock: "CopyClock"
     anchor: Tuple[float, _Event]
@@ -195,9 +238,9 @@ _KINDS = {(False, True): "HtoD", (True, False): "DtoH", (True, True): "DtoD"}
 
 
 def _copy_library() -> Tuple[Any, Any]:
-    """The port's kernel library's timed copy (``csrc/timed_copy.cu``),
-    which lets go of the interpreter lock while it queues, and its read of
-    a copy's times, through ``ctypes.PyDLL``, which keeps the lock: a read
+    """The port's kernel library's timed copies (``csrc/timed_copy.cu``),
+    which let go of the interpreter lock while they queue, and its read of
+    a bracket's times, through ``ctypes.PyDLL``, which keeps the lock: a read
     of a microsecond is cheaper than handing the lock to another thread and
     waiting to get it back."""
     from repro_torch.kernels import build
@@ -205,7 +248,7 @@ def _copy_library() -> Tuple[Any, Any]:
     times = ctypes.PyDLL(lib._name).hyperoffload_copy_times
     times.argtypes = [ctypes.c_void_p] * 3 + [ctypes.POINTER(ctypes.c_float)]
     times.restype = ctypes.c_int
-    return lib.hyperoffload_timed_copy, times
+    return lib.hyperoffload_timed_copies, times
 
 
 def _check(err: int, what: str) -> None:
@@ -218,19 +261,21 @@ class CopyClock:
     """Times copies on one CUDA device, on the host's ``time.perf_counter``
     clock.
 
-    A timed copy and the timing events before and after it are queued in
+    Timed copies and the timing events before and after them are queued in
     one call into the port's kernel library (``csrc/timed_copy.cu``): no
     other thread can put anything between them on the stream, so the
-    device meets the events right before and right after the copy. Queued
-    through torch, they are three calls, each letting go of the interpreter
-    lock, and a thread that waits to get it back between them leaves the
-    stream idle inside the bracket.
+    device meets the events right before the first copy and right after
+    the last. Queued through torch, they are several calls, each letting go
+    of the interpreter lock, and a thread that waits to get it back between
+    them leaves the stream idle inside the bracket.
 
     Between the events the device also spends the copy engine's latency to
-    start and finish a copy, some microseconds whatever its size, which a
-    profiler's record of the copy leaves out: the clock measures it in each
-    direction on 4-byte copies when it is made (the median of five) and
-    takes it off every copy.
+    start and finish a copy, some microseconds whatever its size, and a
+    shorter one between copies queued back to back, which a profiler's
+    record of the copies leaves out: the clock measures both in each
+    direction on 4-byte copies when it is made (the median of five
+    brackets of one copy, and of two, less that of one) and takes them off
+    every bracket.
 
     The anchor is a host reading and a timing event recorded on a stream of
     the clock's own, which carries nothing else, so the event runs as soon
@@ -247,7 +292,8 @@ class CopyClock:
         self._free: Deque[Tuple[_Event, _Event]] = deque()
         self._timed_copy, self._copy_times = _copy_library()
         self.anchor = self._read()
-        self.latency = {kind: 0.0 for kind in _KINDS.values()}
+        #: by direction: (a bracket's first copy, each further copy)
+        self.latency = {kind: (0.0, 0.0) for kind in _KINDS.values()}
         self.latency = self._latencies()
 
     def _read(self) -> Tuple[float, _Event]:
@@ -262,19 +308,24 @@ class CopyClock:
         best[2].synchronize()
         return best[1], (best[2], best[2].cuda_event)
 
-    def _latencies(self) -> Dict[str, float]:
+    def _latencies(self) -> Dict[str, Tuple[float, float]]:
         host = torch.zeros(4, dtype=torch.uint8, pin_memory=True)
         dev = torch.zeros(4, dtype=torch.uint8, device=self.device)
         dev2 = torch.zeros_like(dev)
         out = {}
         stream = self._stream.cuda_stream
-        for dst, src in ((dev, host), (host, dev), (dev2, dev)):
+
+        def median(n: int) -> float:
             timings: List[CopyTiming] = []
             for _ in range(5):
-                self.copy(dst, src, stream, timings)
+                self.copies([(dst, src)] * n, stream, timings)
             self._stream.synchronize()
-            seconds = sorted(self.read([t])[1] for t in timings)
-            out[_KINDS[src.is_cuda, dst.is_cuda]] = seconds[2]
+            return sorted(self.read([t])[1] for t in timings)[2]
+
+        for dst, src in ((dev, host), (host, dev), (dev2, dev)):
+            one = median(1)
+            out[_KINDS[src.is_cuda, dst.is_cuda]] = \
+                (one, max(median(2) - one, 0.0))
         return out
 
     def _events(self) -> Tuple[_Event, _Event]:
@@ -289,10 +340,11 @@ class CopyClock:
             made.append((event, event.cuda_event))   # handle
         return made[0], made[1]
 
-    def copy(self, dst: torch.Tensor, src: torch.Tensor, stream: int,
-             timings: List[CopyTiming]) -> None:
-        """Queue ``dst <- src`` (contiguous, of one size) on the raw CUDA
-        ``stream`` between two timing events, and append its timing."""
+    def copies(self, pairs: Sequence[Tuple[torch.Tensor, torch.Tensor]],
+               stream: int, timings: List[CopyTiming]) -> None:
+        """Queue each ``dst <- src`` of ``pairs`` (contiguous, of one size)
+        on the raw CUDA ``stream``, back to back between one pair of timing
+        events, and append their timing."""
         anchor = self.anchor
         if time.perf_counter() - anchor[0] > ANCHOR_RENEW_S:
             with self._renew:
@@ -300,13 +352,17 @@ class CopyClock:
                     self.anchor = self._read()
                 anchor = self.anchor
         events = self._events()
-        _check(self._timed_copy(dst.data_ptr(), src.data_ptr(),
-                                src.numel() * src.element_size(),
-                                events[0][1], events[1][1], stream),
-               "timed copy")
-        timings.append(CopyTiming(self, anchor, events,
-                                  self.latency[_KINDS[src.is_cuda,
-                                                      dst.is_cuda]]))
+        n = len(pairs)
+        _check(self._timed_copy(
+            (ctypes.c_void_p * n)(*(d.data_ptr() for d, _ in pairs)),
+            (ctypes.c_void_p * n)(*(s.data_ptr() for _, s in pairs)),
+            (ctypes.c_size_t * n)(*(s.numel() * s.element_size()
+                                    for _, s in pairs)),
+            n, events[0][1], events[1][1], stream), "timed copy")
+        kinds = [_KINDS[s.is_cuda, d.is_cuda] for d, s in pairs]
+        timings.append(CopyTiming(
+            self, anchor, events, self.latency[kinds[0]][0]
+            + sum(self.latency[k][1] for k in kinds[1:])))
 
     def read(self, timings: List[CopyTiming]) -> Tuple[float, float]:
         """(start of the first on the host clock, seconds summed, each
@@ -342,6 +398,7 @@ class TransferEngine:
         self._pool = ThreadPoolExecutor(max_workers=workers,
                                         thread_name_prefix="pool-xfer")
         self._in_flight: Deque[TransferHandle] = deque()
+        self._held = 0      # places the in-flight handles hold
         self._lock = threading.Lock()
         self._seq = 0
         self._streams: Dict[torch.device, "torch.cuda.Stream"] = {}
@@ -373,20 +430,31 @@ class TransferEngine:
 
     def copy(self, dst: torch.Tensor, src: torch.Tensor,
              timings: List[CopyTiming]) -> None:
-        """Queue ``dst <- src`` on the current stream, as
-        ``dst.copy_(src, non_blocking=True)`` does. A copy between
-        contiguous tensors of one type and shape with a side on a CUDA
-        device is timed there (``CopyClock.copy``) and its timing appended
-        to ``timings``; any other is queued untimed."""
-        if (dst.dtype == src.dtype and dst.shape == src.shape
-                and dst.is_contiguous() and src.is_contiguous()):
+        """Queue ``dst <- src`` on the current stream (``copy_many``)."""
+        self.copy_many([(dst, src)], timings)
+
+    def copy_many(self, pairs: Sequence[Tuple[torch.Tensor, torch.Tensor]],
+                  timings: Optional[List[CopyTiming]]) -> None:
+        """Queue each ``dst <- src`` of ``pairs`` on the current stream, as
+        ``dst.copy_(src, non_blocking=True)`` does. With a ``timings`` list,
+        the copies between contiguous tensors of one type and shape with a
+        side on a CUDA device are timed there, back to back between one
+        pair of timing events (``CopyClock.copies``), and their timing
+        appended to it; any other is queued untimed."""
+        timed = []
+        for dst, src in pairs:
+            if (timings is not None and dst.dtype == src.dtype
+                    and dst.shape == src.shape and dst.is_contiguous()
+                    and src.is_contiguous() and (dst.is_cuda or src.is_cuda)):
+                timed.append((dst, src))
+            else:
+                dst.copy_(src, non_blocking=True)
+        if timed:
+            dst, src = timed[0]
             device = dst.device if dst.is_cuda else src.device
-            if device.type == "cuda":
-                self._clock_for(device).copy(
-                    dst, src, torch._C._cuda_getCurrentRawStream(device.index),
-                    timings)
-                return
-        dst.copy_(src, non_blocking=True)
+            self._clock_for(device).copies(
+                timed, torch._C._cuda_getCurrentRawStream(device.index),
+                timings)
 
     @staticmethod
     def copy_seconds(timings: Optional[List[CopyTiming]],
@@ -439,15 +507,25 @@ class TransferEngine:
     def submit(self, fn: Callable[[], Any], key: Optional[str] = None, *,
                src: Optional[str] = None, dst: Optional[str] = None,
                nbytes: Optional[int] = None,
-               device: Optional[torch.device] = None,
-               timings: Optional[List[CopyTiming]] = None
-               ) -> TransferHandle:
-        """Issue ``fn`` (a transfer thunk) asynchronously; on a CUDA
-        ``device`` it runs under the copy stream. Blocks on the oldest
-        outstanding transfer first when the pipeline is full. With
-        telemetry on, ``timings`` is the list ``fn``'s copies append their
-        device timings to (``copy``): the transfer's copy is theirs, or the
-        host interval of ``fn`` where it timed none."""
+               device: Optional[torch.device] = None) -> TransferHandle:
+        """Issue ``fn`` (a transfer thunk) asynchronously, as a job of one
+        transfer whose copy is the thunk's host interval; its ``wait()``
+        returns what ``fn`` returned."""
+        out: List[Any] = []
+        return self.submit_job(
+            [CopyGroup(lambda timings: out.append(fn()), 1, src, dst,
+                       nbytes)],
+            lambda: out[0], key, device=device)
+
+    def submit_job(self, groups: Sequence[CopyGroup],
+                   result: Callable[[], Any], key: Optional[str] = None, *,
+                   device: Optional[torch.device] = None) -> TransferHandle:
+        """Issue a job: its groups queue their copies in order on one
+        worker (on a CUDA ``device`` under the copy stream, after the
+        submitter's work, in the submitter's inference mode), then
+        ``result()`` gives what the handle's ``wait()`` returns. It holds
+        one place against ``depth`` per page; a full pipeline first retires
+        its oldest jobs."""
         cuda = device is not None and device.type == "cuda"
         stream = self.copy_stream(device) if cuda else None
         produced = None
@@ -455,67 +533,25 @@ class TransferEngine:
             # what the submitter enqueued so far, and nothing after it
             produced = torch.cuda.Event()
             produced.record(torch.cuda.current_stream(device))
-        if self.tracer.enabled and timings is None:
-            timings = []
-        elif not self.tracer.enabled:
-            timings = None
+        places = sum(g.pages for g in groups)
+        job = (groups, result, stream, produced, self.tracer.enabled,
+               torch.is_inference_mode_enabled(), device)
         while True:
             with self._lock:
                 self._reap_locked()
-                if len(self._in_flight) < self.depth:
+                if not self._in_flight or self._held + places <= self.depth:
                     self._seq += 1
-                    seq = self._seq
-                    self.stats.issued += 1
-
-                    def run() -> Tuple[Any, Optional["torch.cuda.Event"],
-                                       Optional[float]]:
-                        # -> (value, its CUDA event, with telemetry on the
-                        # seconds of its copy)
-                        copy = None   # telemetry on: (start, seconds)
-                        t_start = time.perf_counter()
-                        try:
-                            if stream is None:
-                                value, event = fn(), None
-                            else:
-                                stream.wait_event(produced)
-                                with torch.cuda.stream(stream):
-                                    value = fn()
-                                    event = torch.cuda.Event()
-                                    event.record(stream)
-                                event.synchronize()
-                            if timings is not None:
-                                copy = (timings[0].clock.read(timings)
-                                        if timings else
-                                        (t_start,
-                                         time.perf_counter() - t_start))
-                            return value, event, copy and copy[1]
-                        finally:
-                            t_done = time.perf_counter()
-                            with self._lock:
-                                self.stats.completed += 1
-                                if src and dst and nbytes is not None:
-                                    self.stats.record_pair(
-                                        src, dst, nbytes, t_done - t_start,
-                                        copy and copy[1])
-                            if timings is not None:
-                                # a copy timed on the device goes on the
-                                # copy stream's lane, else the worker's
-                                t0, dur = copy or (t_start,
-                                                   t_done - t_start)
-                                self.tracer.complete(
-                                    "transfer", "transfer", t0, dur,
-                                    {"seq": seq, "key": key,
-                                     "src": src, "dst": dst},
-                                    lane=copy_lane(device) if timings
-                                    else None)
-
-                    handle = TransferHandle(key, seq,
-                                            self._pool.submit(run), self)
+                    self.stats.issued += places
+                    handle = TransferHandle(key, self._seq, places, device,
+                                            self)
+                    handle._future = self._pool.submit(self._run, handle,
+                                                       *job)
                     self._in_flight.append(handle)
+                    self._held += places
                     self.stats.max_in_flight = max(self.stats.max_in_flight,
-                                                   len(self._in_flight))
+                                                   self._held)
                     return handle
-                oldest = self._in_flight.popleft()
+                oldest = self._pop_oldest_locked()
             # never block on a future while holding the lock — the worker's
             # completion accounting needs it. A failed transfer's exception
             # belongs to its own handle's wait(), not to this submitter.
@@ -532,6 +568,65 @@ class TransferEngine:
                 self.tracer.complete("transfer", "transfer.backpressure",
                                      t0, dur, {"stalled_on": oldest.seq})
 
+    def _run(self, handle: TransferHandle, groups: Sequence[CopyGroup],
+             result: Callable[[], Any], stream, produced, timed: bool,
+             inference: bool, device: Optional[torch.device]
+             ) -> Tuple[Any, Optional["torch.cuda.Event"], Optional[float]]:
+        """A job on its worker -> (value, the CUDA event of its last copy,
+        with telemetry on the seconds of its copies)."""
+        t_start = time.perf_counter()
+        timings: List[Optional[List[CopyTiming]]] = []
+        landed: List[float] = []    # host time each group was known landed
+        events: List["torch.cuda.Event"] = []
+        copies: List[Tuple[float, float]] = []   # telemetry on, per group
+        try:
+            with contextlib.ExitStack() as ctx:
+                ctx.enter_context(torch.inference_mode(inference))
+                if stream is not None:
+                    stream.wait_event(produced)
+                    ctx.enter_context(torch.cuda.stream(stream))
+                for g in groups:
+                    timings.append([] if timed else None)
+                    g.queue(timings[-1])
+                    if stream is None:
+                        landed.append(time.perf_counter())
+                    else:
+                        events.append(torch.cuda.Event())
+                        events[-1].record(stream)
+                value = result()
+            for event in events:
+                event.synchronize()
+                landed.append(time.perf_counter())
+            if timed:
+                for i, t in enumerate(timings):
+                    begin = landed[i - 1] if i else t_start
+                    copies.append(t[0].clock.read(t) if t else
+                                  (begin, landed[i] - begin))
+            return (value, events[-1] if events else None,
+                    sum(c[1] for c in copies) if timed else None)
+        finally:
+            # a group's busy time runs from the landing of the one before
+            # it (or the job's start) to its own; a failed job's, to now
+            ends = landed + [time.perf_counter()] * (len(groups) - len(landed))
+            with self._lock:
+                self.stats.completed += handle.places
+                for i, g in enumerate(groups):
+                    if g.src and g.dst and g.nbytes is not None:
+                        self.stats.record_pair(
+                            g.src, g.dst, g.nbytes,
+                            ends[i] - (ends[i - 1] if i else t_start),
+                            copies[i][1] if i < len(copies) else None,
+                            transfers=g.pages)
+            for i, (t0, dur) in enumerate(copies):
+                # copies timed on the device go on the copy stream's lane,
+                # else the worker's
+                self.tracer.complete(
+                    "transfer", "transfer", t0, dur,
+                    {"seq": handle.seq, "key": handle.key,
+                     "src": groups[i].src, "dst": groups[i].dst,
+                     "pages": groups[i].pages},
+                    lane=copy_lane(device) if timings[i] else None)
+
     def drain(self) -> None:
         """Retire every outstanding transfer. Failed transfers don't stop
         the drain — their exceptions stay with their handles."""
@@ -539,7 +634,7 @@ class TransferEngine:
             with self._lock:
                 if not self._in_flight:
                     return
-                oldest = self._in_flight.popleft()
+                oldest = self._pop_oldest_locked()
             try:
                 oldest.wait()
             except Exception:
@@ -550,9 +645,14 @@ class TransferEngine:
         self._pool.shutdown(wait=True)
 
     # ------------------------------------------------------------------
+    def _pop_oldest_locked(self) -> TransferHandle:
+        oldest = self._in_flight.popleft()
+        self._held -= oldest.places
+        return oldest
+
     def _reap_locked(self) -> None:
         while self._in_flight and self._in_flight[0]._future.done():
-            self._in_flight.popleft()
+            self._pop_oldest_locked()
 
     def _record_wait(self, was_done: bool, blocked_s: float,
                      copy_s: Optional[float]) -> None:

@@ -6,17 +6,19 @@ builds the layer-level decode graph (``core.tracer.trace_decode_step``
 with pool-resident KV), runs ``HyperOffloadPlanner`` (cache-op insertion +
 Algorithm 1 order refinement) — and then *executes the plan's cache-op
 schedule* every serving step: walking the refined order, each
-``prefetch::kv_i`` node issues the async ``TransferEngine`` fetches for
-layer *i*'s pages at its scheduled slot, which Algorithm 1 placed ahead of
-the consuming layer's compute. The consumer waits on the handles in layer
-order, so layer *l+1*'s pages are in flight while layer *l*'s are being
-consumed, and the scheduler puts the next step's admission and prefill
-work between issue and wait — replacing the reactive
-store-then-immediately-wait round trip (`ServeEngine._cache_round_trip`)
-the paper argues against.
+``prefetch::kv_i`` node issues layer *i*'s pages as one async
+``TransferEngine`` job (``MemoryPoolManager.prefetch_many``) at its
+scheduled slot, which Algorithm 1 placed ahead of the consuming layer's
+compute. Where the caller names each page's destination (the scheduler's
+batch-cache slots) the job copies the pages straight there. The consumer
+waits on the jobs in layer order, so layer *l+1*'s pages are in flight
+while layer *l*'s are being consumed, and the scheduler puts the next
+step's admission and prefill work between issue and wait — replacing the
+reactive store-then-immediately-wait round trip
+(`ServeEngine._cache_round_trip`) the paper argues against.
 
-On a CUDA device each fetch runs on the transfer engine's copy stream and
-a wait makes the compute stream wait on the fetch's event, so the copies
+On a CUDA device each job runs on the transfer engine's copy stream and a
+wait makes the compute stream wait on the job's copies, so the copies
 overlap the compute queued between issue and wait. On the CPU the overlap
 is thread-level; semantics and traffic are what a CPU run shows. The plan
 is made under ``H100`` unless the caller names another spec.
@@ -41,18 +43,20 @@ from repro_torch.pool.transfer import TransferHandle
 
 @dataclass
 class InFlightFetches:
-    """One step's issued page fetches: handles keyed by pool key, grouped
-    by layer in the plan's *consumption* order."""
+    """One step's issued page fetches: one job per layer, with the pool
+    keys it carries, in the plan's *consumption* order."""
 
-    by_layer: List[Tuple[int, List[Tuple[str, TransferHandle]]]]
+    by_layer: List[Tuple[int, Sequence[str], TransferHandle]]
 
     def wait_all(self) -> Dict[str, torch.Tensor]:
-        """Retire every handle in consumption order (layer by layer); each
-        value is ready for the caller's current stream."""
+        """Retire every job in consumption order (layer by layer), so the
+        caller's current stream is ordered after all their copies; returns
+        the pages of the jobs that were given no destinations, by key."""
         out: Dict[str, torch.Tensor] = {}
-        for _, pairs in self.by_layer:
-            for key, h in pairs:
-                out[key] = h.wait()
+        for _, keys, h in self.by_layer:
+            pages = h.wait()
+            if pages is not None:
+                out.update(zip(keys, pages))
         return out
 
 
@@ -134,23 +138,30 @@ class PlanPrefetcher:
     def planned_layers(self) -> Sequence[int]:
         return tuple(self.issue_order)
 
-    def issue(self, keys_by_layer: Mapping[int, Sequence[str]]) -> InFlightFetches:
-        """Issue one step's page fetches in the refined plan order (layers
-        whose pages the caller didn't name are skipped — e.g. empty slots).
-        Returns the in-flight handles grouped in consumption order."""
-        issued: Dict[int, List[Tuple[str, TransferHandle]]] = {}
+    def issue(self, keys_by_layer: Mapping[int, Sequence[str]],
+              dests_by_layer: Optional[
+                  Mapping[int, Sequence[torch.Tensor]]] = None
+              ) -> InFlightFetches:
+        """Issue one step's page fetches in the refined plan order, one job
+        per layer (layers whose pages the caller didn't name are skipped —
+        e.g. empty slots). With ``dests_by_layer`` each page is copied
+        straight into its destination (one per key, in the same order).
+        Returns the in-flight jobs in consumption order."""
+        issued: Dict[int, Tuple[int, Sequence[str], TransferHandle]] = {}
         t0 = self.tracer.now() if self.tracer.enabled else 0.0
         for layer in self.issue_order:
-            pairs = [(k, self.pool.prefetch(k))
-                     for k in keys_by_layer.get(layer, ())]
-            if pairs:
-                issued[layer] = pairs
-                self.stats.fetches_issued += len(pairs)
+            keys = keys_by_layer.get(layer)
+            if keys:
+                dests = None if dests_by_layer is None \
+                    else dests_by_layer[layer]
+                issued[layer] = (layer, keys,
+                                 self.pool.prefetch_many(keys, dests))
+                self.stats.fetches_issued += len(keys)
         self.stats.steps += 1
         if self.tracer.enabled:
             self.tracer.complete(
                 "sched", "prefetch_issue", t0, self.tracer.now() - t0,
-                {"fetches": sum(len(p) for p in issued.values()),
+                {"fetches": sum(len(k) for _, k, _ in issued.values()),
                  "layers": len(issued)})
-        by_layer = [(l, issued[l]) for l in self.consumption_order if l in issued]
-        return InFlightFetches(by_layer=by_layer)
+        return InFlightFetches(by_layer=[
+            issued[l] for l in self.consumption_order if l in issued])

@@ -28,9 +28,9 @@ running requests; each step the scheduler
    prompt's cached leading pages are copied into its row and prefill
    starts after them; a retiring prompt donates its full pages;
 2. (``kv_offload``) waits on the fetches the previous step issued, in the
-   plan's consumption order, and scatters the pages into the batch cache —
-   after the admission and prefill work of step 1, which the transfers
-   overlap;
+   plan's consumption order — each layer's job copies its pages straight
+   into their batch-cache slots — after the admission and prefill work of
+   step 1, which the transfers overlap;
 3. decodes all running requests in ONE batched ``decode_step`` with
    per-row positions (a (B,) device tensor, sent with the tokens in one
    host-to-device copy; on the card the ring-decode kernel reads it per
@@ -41,14 +41,17 @@ running requests; each step the scheduler
    pool's priority+LRU manager spills *cold* sequences' pages, those
    closest to retirement, to the host tier under device-tier pressure) and
    at once issues the next step's fetches along the planner's refined
-   order (``PlanPrefetcher``).
+   order (``PlanPrefetcher``), one job per layer, each page's destination
+   its slot in the batch cache.
 
 The caches are written in place (the reference threads donated arrays).
 That is safe because every park stores a copy: a device-tier put copies
 the row on the compute stream before the next decode writes it, and a
 host-tier put copies on the transfer engine's stream after the compute
-stream and returns once the bytes have landed; a fetched page reaches the
-cache only after the compute stream has waited on its copy's event. For
+stream and returns once the bytes have landed; a fetched page lands in its
+slot on the copy stream, and the compute stream waits on the copy before
+anything reads or writes the slot again (a preempted row's slot too:
+``_preempt`` waits on the landings before the slot is freed). For
 the same reason a resident DECODE row that is preempted is copied out of
 its slot (the reference keeps a slice, which JAX copies), and prefix pages
 donated from the batch cache are views that the pool's put copies.
@@ -270,7 +273,6 @@ class ContinuousScheduler:
             self.preemptor = PreemptionEngine(self.slo)
         self.prefetcher: Optional[PlanPrefetcher] = None
         self._inflight: Optional[InFlightFetches] = None
-        self._fetch_map: Dict[str, Tuple[int, int, int, int, int]] = {}
         if cfg.kv_offload:
             self.prefetcher = PlanPrefetcher(
                 model.cfg, cfg.max_batch, cfg.max_seq, pool=self.pool,
@@ -323,6 +325,10 @@ class ContinuousScheduler:
         if self._closed:
             return
         self._closed = True
+        if self._inflight is not None:
+            # the landings write the batch cache: let them finish first
+            self._inflight.wait_all()
+            self._inflight = None
         if self.cfg.kv_offload:
             self.pool.remove_evict_listener(self._on_evict)
         for st in (list(self.slots) + list(self.preempted)
@@ -366,22 +372,11 @@ class ContinuousScheduler:
 
     def _collect_inflight(self) -> None:
         """Wait (in the plan's consumption order) on the fetches issued at
-        the end of the previous step and scatter the pages back into the
-        batch cache, in place, on the compute stream (each wait has made
-        it wait on its fetch's copy)."""
-        fetched = self._inflight.wait_all()
+        the end of the previous step: their jobs have copied the pages into
+        the batch cache in place, and each wait makes the compute stream
+        wait on its job's copies."""
+        self._inflight.wait_all()
         self._inflight = None
-        for key, arr in fetched.items():
-            dest = self._fetch_map.get(key)
-            if dest is None:
-                # the owner was preempted after these fetches were issued:
-                # its slot may already hold another request, so the value
-                # is dropped (the page itself stays pool-resident from the
-                # last park — resume fetches it again)
-                continue
-            si, pi, j, ri, slot = dest
-            _flatten(self._subtree(si, pi))[0][j][ri, slot] = arr
-        self._fetch_map = {}
 
     def _reserve_capacity(self, state: RequestState) -> bool:
         """Worst-case capacity reservation (the request's page-key prefix
@@ -510,8 +505,10 @@ class ContinuousScheduler:
     def _preempt(self, victim: RequestState) -> None:
         """Park a running sequence and free its slot. A DECODE victim's
         rows are either already pool-resident from the last ``_park_and_
-        issue`` (kv_offload — just demote their priority and orphan any
-        in-flight fetches targeting the reassigned slot) or copied out of
+        issue`` (kv_offload — just demote their priority, after waiting on
+        the in-flight fetches that land its pages in the slot, so none
+        lands on the slot's next occupant: they bring back the victim's
+        own parked bytes) or copied out of
         the batch cache onto ``chunk_cache`` (resident: a copy, since the
         next request in the slot writes the batch cache in place). A
         mid-PREFILL victim's partial row is already on ``chunk_cache``/in
@@ -525,8 +522,10 @@ class ContinuousScheduler:
                 r[:, 0] = big[:, slot]
             victim.chunk_cache = row
         if self.cfg.kv_offload and victim.pages is not None:
+            if victim.status == DECODE and self._inflight is not None:
+                # every planned layer's job carries every live row's pages
+                self._inflight.wait_all()
             for key in victim.pages.keys.values():
-                self._fetch_map.pop(key, None)
                 self.pool.set_priority(key, _PREEMPTED_PAGE_PRIO)
         victim.status = PREEMPTED
         victim.preemptions += 1
@@ -970,19 +969,21 @@ class ContinuousScheduler:
         under device-tier pressure."""
         live = [s for s in self.slots if s is not None and s.status == DECODE]
         keys_by_layer: Dict[int, List[str]] = {}
-        self._fetch_map = {}
+        dests_by_layer: Dict[int, List[torch.Tensor]] = {}
         for s in live:
             prio = float(s.request.max_new_tokens - len(s.out))
             for i, (si, ri, pi) in enumerate(self._flat):
                 leaves = _flatten(self._subtree(si, pi))[0]
                 for j, leaf in enumerate(leaves):
-                    key = s.pages.park(f"L{i}.{j}", leaf[ri, s.slot],
+                    slot = leaf[ri, s.slot]
+                    key = s.pages.park(f"L{i}.{j}", slot,
                                        self.pool.top_tier, priority=prio)
                     keys_by_layer.setdefault(i, []).append(key)
-                    self._fetch_map[key] = (si, pi, j, ri, s.slot)
+                    dests_by_layer.setdefault(i, []).append(slot)
                     self.stats.pages_parked += 1
         if keys_by_layer:
-            self._inflight = self.prefetcher.issue(keys_by_layer)
+            self._inflight = self.prefetcher.issue(keys_by_layer,
+                                                   dests_by_layer)
 
     # ------------------------------------------------------------------
     def replan(self, hw: HardwareSpec) -> None:
@@ -1009,8 +1010,9 @@ class ContinuousScheduler:
         Admission + prefill run *before* the in-flight fetches are waited
         on: that work sits between the previous step's issue and this
         step's wait, so the transfers it overlaps are real. A newly
-        admitted slot was free when the fetches were issued, so the
-        joiner's freshly scattered rows are never clobbered by collect."""
+        admitted slot was free when the fetches were issued (or freed by a
+        preemption that waited on its landings), so no landing writes the
+        joiner's freshly scattered rows."""
         tr = self._tracer
         with tr.span("sched", "step", step=self.stats.steps):
             with tr.span("sched", "admit_prefill"):

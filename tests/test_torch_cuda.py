@@ -686,6 +686,83 @@ def test_copy_stream_timing_matches_the_profiler(cuda_device):
         assert device_s == pytest.approx(profiled, rel=0.05)
 
 
+@pytest.mark.cuda
+def test_a_fetch_job_lands_mixed_tier_pages_in_batch_cache_slots(
+        cuda_device):
+    """Sixteen 4 MiB pages, eight left in the device tier and eight spilled
+    to pinned host memory, fetched as one job (``prefetch_many``) into the
+    (layer, slot) slices of a batch cache, two layers by eight slots, in
+    an order that mixes the tiers: every slice holds its page bit for bit,
+    and a kernel queued on the compute stream after the wait reads them.
+    With telemetry on the job is one ``transfer`` span per source tier on
+    the copy stream's lane, the host pages' first, and the host tier's
+    ``device_s`` is the profiler's ``Memcpy HtoD`` time within 5 %."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.obs import Tracer
+    from repro_torch.pool import default_pool
+    from repro_torch.pool.transfer import copy_lane
+
+    n, numel = 16, 2 << 20
+    page_bytes = numel * 2
+    tracer = Tracer()
+    pool = default_pool(device=cuda_device, device_capacity=8 * page_bytes,
+                        transfer_workers=1, tracer=tracer)
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    pages = [torch.randn(numel, device=cuda_device, generator=g,
+                         dtype=torch.bfloat16) for _ in range(n)]
+    for i, page in enumerate(pages):
+        pool.put(f"p{i}", page, tier="device")
+    keys = [f"p{i}" for i in (0, 15, 1, 14, 2, 13, 3, 12, 4, 11, 5, 10, 6,
+                              9, 7, 8)]
+    tiers = [pool.tier_of(k) for k in keys]
+    assert tiers.count("host") == tiers.count("device") == 8
+    cache = torch.zeros(2, 8, numel, device=cuda_device,
+                        dtype=torch.bfloat16)
+    dests = [cache[i % 2, i // 2] for i in range(n)]
+    want = torch.stack([pages[int(k[1:])] for k in keys]).float().sum(-1)
+    assert pool.prefetch_many(keys, dests).wait() is None   # warm-up
+    cache.zero_()
+    torch.cuda.synchronize()
+    tracer.clear()
+    before = pool.transfer.clock()
+    prof = profile(activities=[ProfilerActivity.CUDA])
+    prof.start()
+    assert pool.prefetch_many(keys, dests).wait() is None
+    got = torch.stack(dests).float().sum(-1)   # on the compute stream
+    torch.cuda.synchronize()
+    prof.stop()
+    after = pool.transfer.clock()
+    lane = copy_lane(pool.device)
+    pool.close()
+    assert torch.equal(got, want)
+    for k, d in zip(keys, dests):
+        assert torch.equal(d, pages[int(k[1:])])
+    spans = [e for e in tracer.events() if e.name == "transfer"]
+    assert [(e.args["src"], e.args["dst"]) for e in spans] == \
+        [("host", "device"), ("device", "device")]
+    assert len({e.args["seq"] for e in spans}) == 1
+    assert {e.tid for e in spans} == {lane}
+    assert spans[0].end <= spans[1].ts + 2e-5
+    raw = [(e.name(), (e.end_ns() - e.start_ns()) * 1e-9)
+           for e in prof.profiler.kineto_results.events()
+           if e.device_type() == DeviceType.CUDA and "Memcpy" in e.name()]
+    for pair, kind in (("host->device", "HtoD"), ("device->device", "DtoD")):
+        delta = {f: after["pairs"][pair][f] - before["pairs"][pair][f]
+                 for f in ("transfers", "bytes", "device_s")}
+        profiled = sum(s for name, s in raw if kind in name)
+        print(f"{pair}: {delta['transfers']} pages, device_s "
+              f"{delta['device_s'] * 1e3:.4f} ms, profiler "
+              f"{profiled * 1e3:.4f} ms over "
+              f"{sum(1 for name, _ in raw if kind in name)} copies")
+        assert delta["transfers"] == 8
+        assert delta["bytes"] == 8 * page_bytes
+    host_s = after["pairs"]["host->device"]["device_s"] \
+        - before["pairs"]["host->device"]["device_s"]
+    assert host_s == pytest.approx(
+        sum(s for name, s in raw if "HtoD" in name), rel=0.05)
+
+
 # ---------------------------------------------------------------------------
 # training: no kernel lies on the path; the offload machinery does
 # ---------------------------------------------------------------------------
