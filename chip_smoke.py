@@ -1787,6 +1787,8 @@ def sched_run(torch, dev, kernels, model, params, trace, mode, kw, n_attn,
         ttft_ms_max=f"{max(ttft_ms):.2f}")
     log("sched", mode=mode, stats=json.dumps(st),
         launches=json.dumps(counts), prefill_calls=calls["prefill"],
+        decode_graph=json.dumps({k: getattr(sched.clock, f"decode_{k}")
+                                 for k in ("captures", "replays", "eager")}),
         chunk_calls=calls["chunk"],
         fetches_issued=pf.get("fetches_issued", 0),
         mean_plan_lead=pf.get("mean_plan_lead", "n/a"),

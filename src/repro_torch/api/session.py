@@ -232,10 +232,11 @@ class HyperOffloadSession:
         return sched
 
     def _collect_sched_clock(self) -> Dict[str, Any]:
-        out = {"admissions": 0, "queue_wait_s": 0.0}
+        out = {"admissions": 0, "queue_wait_s": 0.0, "decode_captures": 0,
+               "decode_replays": 0, "decode_eager": 0}
         for s in self._schedulers:
-            out["admissions"] += s.clock.admissions
-            out["queue_wait_s"] += s.clock.queue_wait_s
+            for k in out:
+                out[k] += getattr(s.clock, k)
         return out
 
     def _collect_transfer_clock(self) -> Dict[str, Any]:
@@ -460,9 +461,9 @@ class HyperOffloadSession:
         so its counters have one shape whether telemetry is on or off — with
         telemetry on, two more collectors carry clock readings
         (``"sched_clock"``: admissions and their host seconds from submit to
-        slot; ``"transfer_clock"``: the transfer engine's ``clock()``, and
-        the pool's ``fetch_jobs`` and the ``fetch_job_pages`` they
-        carried), and
+        slot, and the batched decodes captured, replayed and run eager;
+        ``"transfer_clock"``: the transfer engine's ``clock()``, and the
+        pool's ``fetch_jobs`` and the ``fetch_job_pages`` they carried), and
         one extra ``"telemetry"`` key carries the latency histograms and the
         trace-ring state."""
         out = self.registry.collect()

@@ -42,7 +42,8 @@ from repro_torch.kernels.ssd_scan import ssd_scan_cuda
 from repro_torch.sharding.ops import is_dtensor
 
 __all__ = ["flash_attention", "decode_attention", "ssd_scan",
-           "launch_counts", "reset_launch_counts"]
+           "launch_counts", "reset_launch_counts", "launch_counters",
+           "add_launch_counters"]
 
 _COUNTED = {"flash_attention": flash_attention_cuda,
             "paged_decode_attention": paged_decode_attention_cuda,
@@ -113,6 +114,30 @@ def _refuse_dtensor(*ts) -> None:
 def launch_counts() -> Dict[str, int]:
     """Kernel launches so far, by kernel name."""
     return {name: fn.launches for name, fn in _COUNTED.items()}
+
+
+def launch_counters() -> Dict[Tuple[str, Optional[str]], int]:
+    """Every launch counter: ``(kernel, None)`` the kernel's launches,
+    ``(kernel, instance)`` its launches of one instance (flash, SSD)."""
+    out: Dict[Tuple[str, Optional[str]], int] = {}
+    for name, fn in _COUNTED.items():
+        out[(name, None)] = fn.launches
+        for inst, n in getattr(fn, "instances", {}).items():
+            out[(name, inst)] = n
+    return out
+
+
+def add_launch_counters(delta: Dict[Tuple[str, Optional[str]], int]
+                        ) -> None:
+    """Add ``delta``, keyed as :func:`launch_counters` keys it, to the
+    counters: a CUDA graph's replay launches the kernels it captured
+    without calling their wrappers, so it adds what its capture counted."""
+    for (name, inst), n in delta.items():
+        fn = _COUNTED[name]
+        if inst is None:
+            fn.launches += n
+        else:
+            fn.instances[inst] += n
 
 
 def reset_launch_counts() -> None:

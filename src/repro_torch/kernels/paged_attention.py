@@ -23,7 +23,7 @@ buffer.
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Union
+from typing import Dict, List, Optional, Union
 
 import torch
 
@@ -59,6 +59,14 @@ def _ticket_buffer(device: torch.device, n: int) -> torch.Tensor:
         buf = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
         _tickets[idx] = buf
     return buf
+
+
+def ticket_buffers() -> List[torch.Tensor]:
+    """The ticket buffers in use, one a device. A CUDA graph that captured
+    a split-K launch holds them: a later, larger launch replaces its
+    device's buffer, and the graph's launches keep the address they
+    captured."""
+    return list(_tickets.values())
 
 
 def _n_sm(device: torch.device) -> int:

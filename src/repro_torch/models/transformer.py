@@ -108,8 +108,11 @@ def embed_tokens(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
     place of whisper's learned table."""
     x = embed_lookup(params["embed"], tokens.long())
     if cfg.scale_embeddings:
-        # the constant is rounded to x's type first, as the reference does
-        x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype, device=x.device)
+        # the constant is rounded to x's type first, as the reference does;
+        # filled on the device, not copied from the host, so a CUDA graph
+        # can capture the step
+        x = x * torch.full((), cfg.d_model ** 0.5, dtype=x.dtype,
+                           device=x.device)
     if vision_embeds is not None and vision_mask is not None:
         x = torch.where(vision_mask[..., None], vision_embeds.to(x.dtype), x)
     if cfg.rope_mode == "learned":

@@ -10,7 +10,9 @@ port's copy of ``repro.sched``).
   sequences' pages through the pool's priority+LRU manager;
 - ``prefetch``  — plan-driven prefetcher running ``HyperOffloadPlanner``'s
   refined decode order at serving time: layer *l+1*'s page fetches issue
-  while layer *l*'s are consumed.
+  while layer *l*'s are consumed;
+- ``graph``     — the batched decode step captured once as a CUDA graph
+  and replayed every step, where the step allows it (port only).
 """
 
 from repro_torch.sched.prefetch import InFlightFetches, PlanPrefetcher, PrefetchStats

@@ -35,7 +35,9 @@ running requests; each step the scheduler
    per-row positions (a (B,) device tensor, sent with the tokens in one
    host-to-device copy; on the card the ring-decode kernel reads it per
    row), reads the step's tokens on the host, and retires requests that
-   hit their budget — freeing slots for step 1 of the next iteration;
+   hit their budget — freeing slots for step 1 of the next iteration. On
+   the card the step is captured once as a CUDA graph and replayed
+   (``sched.graph.DecodeGraph``), bit for bit the eager step;
 4. in ``kv_offload`` mode, parks every running request's pages back into
    the pool (stable per-page keys, priority = remaining decode budget — the
    pool's priority+LRU manager spills *cold* sequences' pages, those
@@ -86,6 +88,7 @@ from repro_torch.offload.kvcache import KVPageTable, worst_case_page_bytes
 from repro_torch.pool import MemoryPoolManager, auto_depth, default_pool
 from repro_torch.pool.manager import PoolEntry
 from repro_torch.prefix import PrefixCacheManager
+from repro_torch.sched.graph import DecodeGraph
 from repro_torch.sched.prefetch import InFlightFetches, PlanPrefetcher
 from repro_torch.sched.queue import AdmissionController, ArrivalQueue
 from repro_torch.sched.requests import (
@@ -155,10 +158,15 @@ class SchedStats:
 class SchedClock:
     """The scheduler's readings of the host clock (``time.perf_counter``),
     beside the virtual steps of ``SchedStats``: requests admitted to a
-    slot, and the seconds they waited for it from ``submit()``."""
+    slot, and the seconds they waited for it from ``submit()``; and how
+    each batched decode ran (``sched.graph.DecodeGraph``): captured as a
+    CUDA graph (the step itself run eagerly), replayed, or eager."""
 
     admissions: int = 0
     queue_wait_s: float = 0.0
+    decode_captures: int = 0
+    decode_replays: int = 0
+    decode_eager: int = 0
 
 
 class ContinuousScheduler:
@@ -221,7 +229,8 @@ class ContinuousScheduler:
             if cfg.prefill_tokens < 1:
                 raise ValueError("prefill_tokens must be >= 1")
         self._prefill = jit_prefill(model)
-        self._decode = jit_decode(model)
+        self._decode_graph = DecodeGraph(jit_decode(model), self.clock)
+        self._decode = self._decode_graph
         self.cache = model.init_cache(cfg.max_batch, cfg.max_seq,
                                       cfg.cache_dtype, device=self.device)
         self.slots: List[Optional[RequestState]] = [None] * cfg.max_batch
@@ -339,6 +348,7 @@ class ContinuousScheduler:
                 if st.prefix_hit is not None and self.prefix_cache is not None:
                     self.prefix_cache.release(st.prefix_hit)
                 self.admission.release(st)
+        self._decode_graph.reset()
         if self._owns_pool:
             self.pool.close()
 

@@ -1155,3 +1155,145 @@ def test_training_under_the_rules_is_bit_for_bit(card_mesh, arch, remat):
     assert all(torch.equal(a, b) for a, b in zip(out[0][0], out[1][0]))
     assert all(torch.equal(a, b) for a, b in zip(out[0][1], out[1][1]))
     assert dict(tops.launch_counts()) == before
+
+
+# ---------------------------------------------------------------------------
+# the continuous scheduler's decode step, replayed as a CUDA graph
+# ---------------------------------------------------------------------------
+
+GRAPH_BATCH, GRAPH_SEQ = 4, 64
+#: (arch, kv_offload): both benchmark families resident and offloaded;
+#: gemma2 (embeddings scaled on the device, a sliding window, soft caps)
+#: and zamba2 (a recurrent state written in place) resident
+GRAPH_RUNS = [("phi3-mini-3.8b", False), ("phi3-mini-3.8b", True),
+              ("granite-moe-3b-a800m", False),
+              ("granite-moe-3b-a800m", True), ("gemma2-9b", False),
+              ("zamba2-7b", False)]
+
+
+def _graph_trace(vocab):
+    """Nine requests over four slots: rows join and retire mid-stream, greedy
+    and sampled, 30-odd decode steps."""
+    import numpy as np
+    from repro_torch.sched import Request
+    rng = np.random.default_rng(5)
+    shapes = [(12, 9, 0.0), (30, 14, 0.0), (7, 20, 1.0), (21, 3, 2.0),
+              (16, 11, 4.0), (5, 16, 6.0), (40, 6, 9.0), (9, 12, 12.0),
+              (25, 8, 15.0)]
+    return [Request(tokens=rng.integers(0, vocab, size=s, dtype=np.int32),
+                    max_new_tokens=n, arrival=a, seed=i,
+                    temperature=0.7 if i % 3 == 2 else 0.0, top_k=8)
+            for i, (s, n, a) in enumerate(shapes)]
+
+
+def _graph_sched_run(cuda_device, model, params, kv_offload, eager):
+    """The trace through ``ContinuousScheduler`` in bf16: every decode
+    step's logits (copied out) and ring-kernel launches, the tokens in the
+    trace's order, the clock. ``eager`` calls the eager step in the
+    graph's place."""
+    from repro_torch.offload.kvcache import worst_case_page_bytes
+    from repro_torch.pool import default_pool
+    from repro_torch.sched import ContinuousScheduler, SchedulerConfig
+    pool = None
+    if kv_offload:
+        row = worst_case_page_bytes(model.cache_specs(1, GRAPH_SEQ,
+                                                      torch.bfloat16))
+        # a tier of 1.5 rows: pages spill to pinned host and come back
+        pool = default_pool(device=cuda_device, device_capacity=int(1.5 * row))
+    sched = ContinuousScheduler(model, params, SchedulerConfig(
+        max_batch=GRAPH_BATCH, max_seq=GRAPH_SEQ, cache_dtype=torch.bfloat16,
+        kv_offload=kv_offload), pool=pool)
+    step = sched._decode_graph.decode if eager else sched._decode_graph
+    logits, launches = [], []
+
+    def recorded(*args):
+        r0 = decode_attention_cuda.launches
+        out = step(*args)
+        launches.append(decode_attention_cuda.launches - r0)
+        logits.append(out[0].clone())
+        return out
+    sched._decode = recorded
+    out = sched.run(_graph_trace(model.cfg.vocab_size))
+    clock = sched.clock
+    sched.close()
+    if pool is not None:
+        pool.close()
+    return logits, launches, [out[r].tolist() for r in sorted(out)], clock
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,kv_offload", GRAPH_RUNS,
+                         ids=[f"{a.split('-')[0]}-{'kv_offload' if o else 'resident'}"
+                              for a, o in GRAPH_RUNS])
+def test_decode_graph_replays_the_eager_scheduler_bit_for_bit(
+        cuda_device, arch, kv_offload):
+    """The scheduler's decode replayed as a CUDA graph against the same
+    scheduler calling the eager step: every step's logits and every token
+    equal bit for bit while rows join and retire; one capture, every later
+    step replayed; the ring kernel's launch counter grows by one launch a
+    layer on every step, replays included."""
+    from repro_torch.models.model import build_model
+    cfg = REGISTRY[arch].reduced()
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device=cuda_device).manual_seed(0),
+                        torch.bfloat16, cuda_device)
+    n_attn = sum(seg.repeats * sum(s.mixer != "mamba2" for s in seg.pattern)
+                 for seg in cfg.segments)
+    e_logits, e_launches, e_tokens, e_clock = _graph_sched_run(
+        cuda_device, model, params, kv_offload, eager=True)
+    g_logits, g_launches, g_tokens, g_clock = _graph_sched_run(
+        cuda_device, model, params, kv_offload, eager=False)
+    n = len(e_logits)
+    assert n >= 20 and len(g_logits) == n
+    assert g_tokens == e_tokens
+    for i, (a, b) in enumerate(zip(g_logits, e_logits)):
+        assert torch.equal(a, b), f"decode step {i}"
+    assert e_launches == g_launches == [n_attn] * n
+    assert (e_clock.decode_captures, e_clock.decode_replays,
+            e_clock.decode_eager) == (0, 0, 0)
+    assert (g_clock.decode_captures, g_clock.decode_replays,
+            g_clock.decode_eager) == (1, n - 1, 0)
+
+
+@pytest.mark.cuda
+def test_decode_graph_never_replays_the_kernel_graph_under_plain(
+        cuda_device):
+    """Switching to the plain attention path changes the graph's key: the
+    kernel graph is dropped, the plain step is captured anew (no ring
+    launch counted) and equals the eager plain step bit for bit; switching
+    back captures the kernel step again."""
+    from repro_torch.models.model import build_model
+    from repro_torch.sched.graph import DecodeGraph
+    from repro_torch.sched.scheduler import SchedClock
+    from repro_torch.serving.engine import jit_decode
+    cfg = REGISTRY["phi3-mini-3.8b"].reduced()
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device=cuda_device).manual_seed(0),
+                        torch.bfloat16, cuda_device)
+    step = jit_decode(model)
+    clock = SchedClock()
+    g = DecodeGraph(step, clock)
+    cache = model.init_cache(GRAPH_BATCH, GRAPH_SEQ, torch.bfloat16,
+                             device=cuda_device)
+    twin = model.init_cache(GRAPH_BATCH, GRAPH_SEQ, torch.bfloat16,
+                            device=cuda_device)
+    n_attn = cfg.n_layers
+    tok = torch.arange(GRAPH_BATCH, device=cuda_device,
+                       dtype=torch.int32)[:, None]
+
+    def run(i, impl):
+        pos = torch.tensor([i, i + 3, 0, 2 * i], device=cuda_device,
+                           dtype=torch.int32)
+        r0 = decode_attention_cuda.launches
+        with use_attention_impl(impl):
+            got, _ = g(params, cache, tok, pos)
+            want, _ = step(params, twin, tok, pos)
+        assert torch.equal(got, want), (i, impl)
+        return decode_attention_cuda.launches - r0
+
+    assert [run(i, "kernel") for i in range(3)] == [2 * n_attn] * 3
+    assert [run(i, "plain") for i in range(3, 6)] == [0, 0, 0]
+    assert (clock.decode_captures, clock.decode_replays) == (2, 4)
+    assert [run(i, "kernel") for i in range(6, 8)] == [2 * n_attn] * 2
+    assert (clock.decode_captures, clock.decode_replays,
+            clock.decode_eager) == (3, 5, 0)
